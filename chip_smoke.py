@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`cometbft_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each of which raises on failure (so the script exits non-zero
+and never prints its last line):
+
+1. the card: `nvidia-smi` name and power limit, torch and CUDA versions;
+   no CUDA device is an error;
+2. build every kernel from `cometbft_tpu_torch/csrc/` with nvcc (one
+   process per source, all at once) and print the build seconds and the
+   `ptxas -v` register and spill lines;
+3. hold each kernel against its plain PyTorch version on the card at
+   B = 10,240 (the ladder on a 1,024-lane sub-batch): exact agreement
+   after `freeze`, zero mismatches allowed, and outputs inside the loose
+   limb invariant; time kernel and plain version with CUDA events;
+4. the main path, with every launch count set to 0 just before it:
+   two vote-shaped 10,000-signature commits generated on the card
+   (`crypto.testgen`, through the field kernels), 16 of them verified
+   through `crypto.batch.create_batch_verifier` -> `add_batch` ->
+   `submit` with one `collect_pending` (twice: cold and warm pubkey
+   cache), then one commit with fixed bad lanes whose bitmap must be
+   exact and agree with the pure-Python oracle on a 256-lane sample;
+   the counts are read right after, and a kernel of the path that was
+   never launched is an error. A stage split of one warm commit (host
+   pack and hash, H2D, device, D2H) follows;
+5. one JSON line `{"kernels": [...]}` with each kernel's launches,
+   mismatches, time, plain time and bound;
+6. the card's name and power limit, then the last line
+   `{"ok": true, "device": {...}}`.
+
+Longer output (the full ptxas report and every number) goes to
+`chiprun_out/chip_smoke/`. The script imports torch, numpy and the port,
+never JAX and never `cometbft_tpu`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
+
+B = 10_240  # the 10k-validator commit's bucket
+LADDER_CHECK_LANES = 1_024
+COMMIT_SIGS = 10_000
+PIPELINE_DEPTH = 16
+ORACLE_SAMPLE = 256
+# 32-bit integer multiplies per SM per clock on compute capability 9.0
+# (CUDA C++ Programming Guide, "Arithmetic Instructions" throughput table)
+INT32_MUL_PER_SM_CLK = 64
+# wide (32x32->64) multiplies per field product in the kernels' radix
+# 2^25.5: the 10x10 schoolbook of csrc/field25519.cuh fe_mul
+MULS_PER_FIELD_PRODUCT = 100
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+
+SOURCES = {
+    "fe_mul": ("cometbft_tpu_torch/csrc/field_kernels.cu", "cometbft_tpu/ops/field.py:229"),
+    "fe_sq": ("cometbft_tpu_torch/csrc/field_kernels.cu", "cometbft_tpu/ops/field.py:233"),
+    "decompress": ("cometbft_tpu_torch/csrc/curve_kernels.cu", "cometbft_tpu/ops/curve.py:172"),
+    "ladder_sub_mul8": ("cometbft_tpu_torch/csrc/curve_kernels.cu",
+                        "cometbft_tpu/ops/curve.py:379"),
+}
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    res = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0].strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of fn() on the current stream (CUDA
+    events around `reps` calls, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time of one launch of `kernel` alone, from a profiler
+    trace of `reps` calls of fn() (the host's launch path excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in e.name]
+    if len(ev) != reps:
+        raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, expected {reps}")
+    return sum(e.device_time_total for e in ev) / reps / 1e3
+
+
+def loose_limbs(rng, n: int):
+    """(22, n) int32 limbs spread over the loose invariant, with lanes at
+    its edges: all zero, every limb at its maximum, p itself, and limb 0
+    at its maximum over canonical high limbs."""
+    from cometbft_tpu_torch.ops import field as F
+
+    a = np.empty((F.NLIMBS, n), np.int32)
+    a[0] = rng.integers(0, 13824, n)
+    a[1:] = rng.integers(0, 4300, (F.NLIMBS - 1, n))
+    a[:, 0:8] = 0
+    a[0, 8:16] = 13823
+    a[1:, 8:16] = 4299
+    a[:, 16:24] = F.P_LIMBS[:, None]
+    a[0, 24:32] = 13823
+    a[1:, 24:32] = 4095
+    return a
+
+
+def frozen_diff(F, got, want) -> tuple[int, int]:
+    """(lanes that differ, max |difference| of a limb) after freeze, for
+    (22, B) elements or (k, 22, B) stacks of them."""
+    got = got.reshape(-1, F.NLIMBS, got.shape[-1])
+    want = want.reshape(-1, F.NLIMBS, want.shape[-1])
+    d = torch.stack([(F.freeze(g).long() - F.freeze(w).long()).abs() for g, w in zip(got, want)])
+    d = d.amax(dim=(0, 1))
+    return int((d > 0).sum()), int(d.max())
+
+
+def check_loose(name: str, t) -> None:
+    """Kernel outputs must satisfy the loose invariant the plain field
+    code assumes: limb 0 in [0, 13824), limbs 1.. in [0, 4300)."""
+    t = t.reshape(-1, 22, t.shape[-1])
+    ok = (t.min() >= 0) and (t[:, 0].max() < 13824) and (t[:, 1:].max() < 4300)
+    if not bool(ok):
+        raise AssertionError(f"{name}: output outside the loose limb invariant")
+
+
+def torsion_point(ref):
+    """A nontrivial 8-torsion point: [L]P for some P outside the prime-order
+    subgroup."""
+    for y in range(2, 50):
+        aff = ref._decode_point(y.to_bytes(32, "little"), zip215=True)
+        if aff is None:
+            continue
+        t = ref._ext_scalar_mul(ref.L, ref._to_ext(aff))
+        if not ref._ext_is_identity(t):
+            return t
+    raise AssertionError("no torsion point found")
+
+
+def torsion_signed(ref, a: int, r: int, msg: bytes, shift_a: bool, t8):
+    """(pub, sig) valid only under the cofactored (ZIP-215) equation: A or R
+    carries an 8-torsion component."""
+    A = ref._ext_scalar_mul(a, ref.B_POINT)
+    R = ref._ext_scalar_mul(r, ref.B_POINT)
+    if shift_a:
+        A = ref._ext_add(A, t8)
+    else:
+        R = ref._ext_add(R, t8)
+    a_enc = ref._encode_point(*ref._ext_to_affine(A))
+    r_enc = ref._encode_point(*ref._ext_to_affine(R))
+    k = int.from_bytes(hashlib.sha512(r_enc + a_enc + msg).digest(), "little") % ref.L
+    return a_enc, r_enc + ((r + k * a) % ref.L).to_bytes(32, "little")
+
+
+def to_columns(items):
+    """List of (pub, msg, sig) -> the add_batch columns."""
+    pubs = np.frombuffer(b"".join(p for p, _, _ in items), np.uint8).reshape(-1, 32)
+    sigs = np.frombuffer(b"".join(s for _, _, s in items), np.uint8).reshape(-1, 64)
+    lens = np.array([len(m) for _, m, _ in items], np.int64)
+    return pubs.copy(), sigs.copy(), b"".join(m for _, m, _ in items), lens
+
+
+def submit_commit(cols, device):
+    from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+
+    pubs, sigs, blob, lens = cols
+    bv = create_batch_verifier(Ed25519PubKey(pubs[0].tobytes()), device=device)
+    bv.add_batch(pubs, sigs, blob, lens)
+    return bv.submit()
+
+
+def products_per_lane():
+    """Field products (mul or sq) per lane of each kernel, counted by running
+    its plain version on one CPU lane through counting routes."""
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import field as F
+
+    count = [0]
+
+    def mul(a, b):
+        count[0] += 1
+        return F.mul_plain(a, b)
+
+    def sq(a):
+        count[0] += 1
+        return F.sq_plain(a)
+
+    ops = C.PointOps(mul, sq)
+    y = torch.from_numpy(F.from_int(9, 1))
+    ops.decompress_value(y, torch.zeros(1, dtype=torch.int32))
+    n_dec = count[0]
+    count[0] = 0
+    pt = C.identity(1, "cpu")
+    digits = torch.zeros((64, 1), dtype=torch.int32)
+    ops.ladder_sub_mul8_value(digits, digits, pt, pt)
+    return {"fe_mul": 1, "fe_sq": 1, "decompress": n_dec, "ladder_sub_mul8": count[0]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    # ---- phase 1: the card
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; one CUDA GPU is needed",
+              file=sys.stderr)
+        return 1
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.crypto.ed25519 import collect_pending
+    from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import ed25519_verify as V
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    mul_rate = INT32_MUL_PER_SM_CLK * props.multi_processor_count * sm_mhz * 1e6
+    log(f"SMs {props.multi_processor_count}, max SM clock {sm_mhz:.0f} MHz, "
+        f"int32 multiply rate {mul_rate:.4g}/s")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    results = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    # ---- phase 2: build
+    t0 = time.perf_counter()
+    K.build()
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f} s (nvcc, {len(K.LIBRARIES)} libraries in parallel)")
+    report = K.ptxas_report()
+    (OUT_DIR / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in report.items()))
+    ptxas_lines = [
+        ln.strip() for txt in report.values() for ln in txt.splitlines()
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+    ]
+    for ln in ptxas_lines:
+        log("ptxas:", ln)
+    results["build_s"] = build_s
+    results["ptxas"] = ptxas_lines
+
+    # ---- phase 3: each kernel against its plain version at the path's shapes
+    rng = np.random.default_rng(args.seed)
+    kern = {}
+    per_lane = products_per_lane()
+
+    def record(name, mism, err, kernel_fn, plain_fn, reps, batch, nbytes):
+        """Time the kernel (CUDA events around back-to-back calls, and its
+        device time alone from the profiler) and its plain version, and
+        compute the bound from this call's bytes and multiplies."""
+        ms = cuda_ms(kernel_fn, reps)
+        device_ms = kernel_device_ms(kernel_fn, name, reps)
+        plain_ms = cuda_ms(plain_fn, max(1, reps // 10))
+        ops_s = per_lane[name] * MULS_PER_FIELD_PRODUCT * batch / mul_rate
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        kern[name] = {
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "mismatches": mism, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": None, "batch": batch, "device_only_ms": device_ms,
+            "field_products_per_lane": per_lane[name],
+        }
+        log(f"check {name}: B={batch} mismatches={mism} max_abs_err={err} "
+            f"kernel {ms:.4f} ms (device alone {device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {kern[name]['bound_ms']:.4f} ms "
+            f"({kern[name]['bound_by']})")
+        if mism:
+            raise AssertionError(f"{name}: {mism} lanes disagree with the plain version")
+
+    a = torch.from_numpy(loose_limbs(rng, B)).to(dev)
+    b = torch.from_numpy(loose_limbs(rng, B)).to(dev)
+    got = K.fe_mul(a, b)
+    check_loose("fe_mul", got)
+    mism, err = frozen_diff(F, got, F.mul_plain(a, b))
+    record("fe_mul", mism, err, lambda: K.fe_mul(a, b), lambda: F.mul_plain(a, b), 200, B,
+           3 * 88 * B)
+    got = K.fe_sq(a)
+    check_loose("fe_sq", got)
+    mism, err = frozen_diff(F, got, F.sq_plain(a))
+    record("fe_sq", mism, err, lambda: K.fe_sq(a), lambda: F.sq_plain(a), 200, B, 2 * 88 * B)
+
+    # decompress: random points (valid), random bytes (about half valid) and
+    # the ZIP-215 edge encodings
+    P = F.P_INT
+    t8 = torsion_point(ref)
+    encs = rng.integers(0, 256, (B, 32), dtype=np.uint8)
+
+    def put(i, enc: bytes):
+        encs[i] = np.frombuffer(enc, np.uint8)
+
+    def with_sign(y: int) -> bytes:
+        e = bytearray(y.to_bytes(32, "little"))
+        e[31] |= 0x80
+        return bytes(e)
+
+    edges = [ref._encode_point(0, 1), with_sign(1), with_sign(P + 1), P.to_bytes(32, "little"),
+             with_sign(P), (0).to_bytes(32, "little")]
+    edges += [(P + k).to_bytes(32, "little") for k in range(19)]  # non-canonical y = p + k
+    edges += [y.to_bytes(32, "little") for y in range(2, 40)]  # some have no square root
+    edges += [ref._encode_point(*ref._ext_to_affine(ref._ext_scalar_mul(k, t8))) for k in range(8)]
+    for i, e in enumerate(edges):
+        put(i, e)
+    n_pts = 512
+    pts = C.compress(C.fixed_base(torch.from_numpy(C.scalar_digits(
+        [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(n_pts)])).to(dev))).cpu()
+    encs[len(edges):len(edges) + n_pts] = pts.numpy()
+    sign, y = C._split_encoding(torch.from_numpy(encs).to(dev))
+    sign_row = sign[None, :].contiguous()
+    valid, x, t = K.decompress(y, sign_row)
+    check_loose("decompress x", x)
+    check_loose("decompress t", t)
+    pv, px, pt = C.decompress_plain(y, sign)
+    want_edges = [ref._decode_point(e, zip215=True) is not None for e in edges]
+    if (pv[:len(edges)].cpu().tolist() != want_edges
+            or not bool(pv[len(edges):len(edges) + n_pts].all())):
+        raise AssertionError("decompress plain version disagrees with the oracle")
+    mism_v = int(((valid[0] != 0) != pv).sum())
+    mx, ex = frozen_diff(F, x, px)
+    mt, et = frozen_diff(F, t, pt)
+    log(f"decompress: {int(pv.sum())}/{B} valid lanes, {len(edges)} edge encodings")
+    record("decompress", mism_v + mx + mt, max(ex, et), lambda: K.decompress(y, sign_row),
+           lambda: C.decompress_plain(y, sign), 20, B, (88 + 4) * B + (4 + 2 * 88) * B)
+
+    # ladder: real points (valid decompressed lanes) and random digits
+    ok_pts = torch.nonzero(pv).flatten()
+    idx = ok_pts[torch.from_numpy(rng.integers(0, len(ok_pts), B)).to(dev)]
+    neg_a = C.neg(tuple(c[:, idx].contiguous() for c in (px, y, F.const(1, dev).expand_as(y), pt)))
+    idx_r = ok_pts[torch.from_numpy(rng.integers(0, len(ok_pts), B)).to(dev)]
+    r_pt = tuple(c[:, idx_r].contiguous() for c in (px, y, F.const(1, dev).expand_as(y), pt))
+    sd = torch.from_numpy(rng.integers(-8, 8, (64, B), dtype=np.int32)).to(dev)
+    kd = torch.from_numpy(rng.integers(-8, 8, (64, B), dtype=np.int32)).to(dev)
+    a4, r4 = torch.stack(neg_a), torch.stack(r_pt)
+    base = C.base_niels(dev)
+    n = LADDER_CHECK_LANES
+    sub = K.ladder_sub_mul8(a4[..., :n].contiguous(), r4[..., :n].contiguous(),
+                            sd[:, :n].contiguous(), kd[:, :n].contiguous(), base)
+    check_loose("ladder_sub_mul8", sub)
+    want = C.ladder_sub_mul8_plain(sd[:, :n], kd[:, :n], tuple(c[:, :n] for c in neg_a),
+                                   tuple(c[:, :n] for c in r_pt))
+    mism, err = frozen_diff(F, sub, torch.stack(want))
+    full = K.ladder_sub_mul8(a4, r4, sd, kd, base)
+    if not torch.equal(full[..., :n], sub):
+        raise AssertionError("ladder_sub_mul8: lanes differ between B=1024 and B=10240 launches")
+    record("ladder_sub_mul8", mism, err, lambda: K.ladder_sub_mul8(a4, r4, sd, kd, base),
+           lambda: C.ladder_sub_mul8_plain(sd, kd, neg_a, r_pt), 10, B,
+           (8 * 88 + 2 * 256 + 264) * B + base.numel() * 4)
+    del a, b, encs, y, x, t, px, pt, a4, r4, full, sd, kd
+    torch.cuda.synchronize()
+
+    # ---- phase 4: the main path, counted
+    K.reset_launches()
+    t0 = time.perf_counter()
+    commits = [generate_signed_batch(COMMIT_SIGS, seed=args.seed + i, msg_len=100,
+                                     vote_shaped=True, device=dev) for i in range(2)]
+    gen_s = time.perf_counter() - t0
+    log(f"testgen: 2 x {COMMIT_SIGS} vote-shaped signatures on the card in {gen_s:.2f} s")
+    cols = [to_columns(c) for c in commits]
+
+    def pipeline():
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        pend = [submit_commit(cols[i % 2], dev) for i in range(PIPELINE_DEPTH)]
+        t_sub = time.perf_counter()
+        res = collect_pending(pend)
+        t_end = time.perf_counter()
+        if not all(ok for ok, _ in res) or not all(len(bits) == COMMIT_SIGS for _, bits in res):
+            raise AssertionError("a valid 10,000-signature commit did not verify")
+        return t_end - t_start, t_sub - t_start
+
+    cold_s, _ = pipeline()
+    warm_s, warm_submit_s = pipeline()
+    sigs_per_s = PIPELINE_DEPTH * COMMIT_SIGS / warm_s
+    log(f"pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold pubkey cache "
+        f"{cold_s:.3f} s, warm {warm_s:.3f} s (submits {warm_submit_s:.3f} s) -> "
+        f"{sigs_per_s:.0f} sigs/s on {card}")
+
+    # one commit with fixed bad lanes
+    items = list(commits[0])
+    a_sc = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(4)]
+    pub, msg, sig = items[0]
+    items[0] = (pub, msg, bytes([sig[0] ^ 1]) + sig[1:])  # flipped signature bit
+    pub, msg, sig = items[1]
+    s = int.from_bytes(sig[32:], "little")
+    items[1] = (pub, msg, sig[:32] + (s + ref.L).to_bytes(32, "little"))  # S >= L
+    pub, msg, sig = items[2]
+    items[2] = (pub[:31] + bytes([pub[31] ^ 0x80]), msg, sig)  # sign-flipped A
+    for lane, shift_a in ((3, True), (4, False)):  # torsion-shifted A, then R
+        msg = items[lane][1]
+        pub, sig = torsion_signed(ref, a_sc[lane - 3], a_sc[lane - 1], msg, shift_a, t8)
+        items[lane] = (pub, msg, sig)
+    expect = [False, False, False, True, True] + [True] * (COMMIT_SIGS - 5)
+    if [ref.verify(p, m, s) for p, m, s in items[:5]] != expect[:5]:
+        raise AssertionError("the bad-lane construction does not give the intended verdicts")
+    ok, bits = submit_commit(to_columns(items), dev).result()
+    if ok or bits != expect:
+        wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
+        raise AssertionError(f"bad-lane commit: bitmap wrong at lanes {wrong[:20]}")
+    sample = [0, 1, 2, 3, 4] + sorted(
+        rng.choice(np.arange(5, COMMIT_SIGS), ORACLE_SAMPLE - 5, replace=False).tolist())
+    if [bits[i] for i in sample] != [ref.verify(*items[i]) for i in sample]:
+        raise AssertionError("bitmap disagrees with ed25519_ref.verify on the sample")
+    log(f"bad-lane commit: bitmap exact (lanes 0-2 rejected, torsion lanes 3-4 accepted); "
+        f"{ORACLE_SAMPLE}-lane sample agrees with ed25519_ref.verify")
+
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    commits_verified = 2 * PIPELINE_DEPTH + 1
+    log(f"main-path launches: {counts} over {commits_verified} commit verifications "
+        f"and 2 generated commits")
+    for name, c in counts.items():
+        if c == 0:
+            raise AssertionError(f"kernel {name} was never launched on the main path")
+        kern[name]["launches"] = c
+    kern["decompress"]["launches_per_commit"] = 1  # R; A once per validator set
+    kern["ladder_sub_mul8"]["launches_per_commit"] = counts["ladder_sub_mul8"] / commits_verified
+
+    # stage split of one warm commit (not counted: the counts were read above)
+    from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey, _bucket
+
+    pubs, sigs, blob, lens = cols[0]
+    bv = create_batch_verifier(Ed25519PubKey(pubs[0].tobytes()), device=dev)
+    bv.add_batch(pubs, sigs, blob, lens)
+    n_lanes, bucket = bv.count(), _bucket(bv.count())
+    stage = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rsk_host = bv._pack_rsk(n_lanes, bucket)
+    stage["host_pack_hash_ms"] = (time.perf_counter() - t0) * 1e3
+    ok_a, neg_a_cached = bv._pubkeys_on_device(n_lanes, bucket)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    rsk = rsk_host.to(dev, non_blocking=True)
+    ev[1].record()
+    live = torch.arange(bucket, device=dev) < n_lanes
+    bits_dev, all_ok = V.verify_batch_cached_a(ok_a, neg_a_cached, rsk, live)
+    ev[2].record()
+    torch.cuda.synchronize()
+    stage["h2d_ms"] = ev[0].elapsed_time(ev[1])
+    stage["device_ms"] = ev[1].elapsed_time(ev[2])
+    t0 = time.perf_counter()
+    if not bool(all_ok.item()):
+        raise AssertionError("stage-split commit did not verify")
+    stage["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+    stage["kernels_ms"] = kern["decompress"]["ms"] + kern["ladder_sub_mul8"]["ms"]
+    stage["torch_glue_ms"] = stage["device_ms"] - stage["kernels_ms"]
+    stage["h2d_bytes_per_lane"] = rsk_host.numel() / n_lanes
+    stage["h2d_bytes_per_lane_pubkeys_once_per_set"] = 32 * bucket / n_lanes
+    log("stage split, one warm 10,000-signature commit: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage.items()) + f" [{card}]")
+
+    # where the device time of that commit goes, by kernel name
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        V.verify_batch_cached_a(ok_a, neg_a_cached, rsk, live)[1].item()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    (OUT_DIR / "profile_commit.txt").write_text(table)
+    log(f"profile, one warm commit: {len(dev_events)} device kernels, {busy_ms:.3f} ms busy")
+    for ln in table.splitlines()[:16]:
+        log("profile:", ln)
+    stage["profiled_device_kernels"] = len(dev_events)
+    stage["profiled_device_busy_ms"] = busy_ms
+
+    results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
+                   pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts)
+    (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))
+
+    # ---- phase 5 and 6: the kernel line, the card, the contract line
+    keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,229 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+Each `csrc/*.cu` file is compiled on first use by its own `nvcc` process
+(all started together) into a shared library with a plain C interface,
+then loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <name>.so csrc/<name>.cu
+
+The libraries go to `build/cometbft_tpu_torch/<hash>/` beside the
+package, where <hash> covers every source and the flags, so an edited
+source rebuilds and an unchanged one loads at once. `ptxas -v` output
+(registers, spills, shared memory per kernel) is kept beside each library
+as `<name>.ptxas.txt` (`ptxas_report()`).
+
+Each launcher checks device, dtype, shape and contiguity, allocates its
+outputs with `torch.empty`, launches on `torch.cuda.current_stream()`,
+raises if the C function returns a non-zero `cudaGetLastError()`, and
+adds one to its entry in `launches`. A missing `nvcc` or a failed build
+raises; nothing falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+NLIMBS = 22
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "cometbft_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+LIBRARIES = ("field_kernels", "curve_kernels")
+
+# One plain integer per kernel, incremented where the kernel is launched.
+launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "field_kernels": {
+        "fe_mul_launch": [_P, _P, _P, _I64, _P],
+        "fe_sq_launch": [_P, _P, _I64, _P],
+    },
+    "curve_kernels": {
+        "decompress_launch": [_P, _P, _P, _P, _P, _I64, _P],
+        "ladder_sub_mul8_launch": [_P, _P, _P, _P, _P, _P, _I64, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).is_file():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def _compile_all(out_dir: Path) -> None:
+    """One nvcc per missing library, all running at once."""
+    todo = [n for n in LIBRARIES if not (out_dir / f"{n}.so").is_file()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = out_dir / f"{name}.so.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.ptxas.txt").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out_dir / f"{name}.so")
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+
+
+def build() -> dict[str, ctypes.CDLL]:
+    """Build (if needed) and load every kernel library; idempotent."""
+    with _lock:
+        if len(_libs) == len(LIBRARIES):
+            return _libs
+        out_dir = build_dir()
+        _compile_all(out_dir)
+        for name in LIBRARIES:
+            lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+            for fn, argtypes in _SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs
+
+
+def ptxas_report() -> dict[str, str]:
+    """The `nvcc -Xptxas -v` output of each library's last build."""
+    out_dir = build_dir()
+    return {
+        n: (out_dir / f"{n}.ptxas.txt").read_text()
+        for n in LIBRARIES
+        if (out_dir / f"{n}.ptxas.txt").is_file()
+    }
+
+
+def _fn(lib: str, name: str):
+    return getattr(build()[lib], name)
+
+
+def _check(t: torch.Tensor, shape: tuple, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _launch(f, kernel: str, device, batch: int, *ptrs) -> None:
+    if batch == 0:
+        return  # nothing to launch; outputs are empty
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = f(*ptrs, batch, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
+    launches[kernel] += 1
+
+
+def fe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(22, B) x (22, B) loose -> (22, B) canonical product mod p."""
+    batch = a.shape[-1]
+    _check(a, (NLIMBS, batch), "fe_mul a")
+    _check(b, (NLIMBS, batch), "fe_mul b")
+    if b.device != a.device:
+        raise ValueError("fe_mul: operands on different devices")
+    f = _fn("field_kernels", "fe_mul_launch")
+    out = torch.empty_like(a)
+    _launch(f, "fe_mul", a.device, batch, a.data_ptr(), b.data_ptr(), out.data_ptr())
+    return out
+
+
+def fe_sq(a: torch.Tensor) -> torch.Tensor:
+    """(22, B) loose -> (22, B) canonical square mod p."""
+    batch = a.shape[-1]
+    _check(a, (NLIMBS, batch), "fe_sq a")
+    f = _fn("field_kernels", "fe_sq_launch")
+    out = torch.empty_like(a)
+    _launch(f, "fe_sq", a.device, batch, a.data_ptr(), out.data_ptr())
+    return out
+
+
+def decompress(y: torch.Tensor, sign: torch.Tensor):
+    """ZIP-215 decoding core. y: (22, B) loose limbs of the sign-masked
+    encoding (may be >= p); sign: (1, B) int32 in {0, 1}.
+    Returns valid (1, B) int32, x and t = x*y as (22, B) canonical limbs."""
+    batch = y.shape[-1]
+    _check(y, (NLIMBS, batch), "decompress y")
+    _check(sign, (1, batch), "decompress sign")
+    f = _fn("curve_kernels", "decompress_launch")
+    valid = torch.empty((1, batch), dtype=torch.int32, device=y.device)
+    x = torch.empty_like(y)
+    t = torch.empty_like(y)
+    _launch(f, "decompress", y.device, batch,
+            y.data_ptr(), sign.data_ptr(), valid.data_ptr(), x.data_ptr(), t.data_ptr())
+    return valid, x, t
+
+
+def ladder_sub_mul8(a4: torch.Tensor, r4: torch.Tensor, s_digits: torch.Tensor,
+                    k_digits: torch.Tensor, base_niels: torch.Tensor) -> torch.Tensor:
+    """(X, Y, Z) of [8]([s]B + [k]A - R) per lane, stacked (3, 22, B),
+    canonical. a4, r4: (4, 22, B) extended points (loose limbs); digits
+    (64, B) int32 in [-8, 7]; base_niels (9, 3, 22) int32."""
+    batch = s_digits.shape[-1]
+    _check(a4, (4, NLIMBS, batch), "ladder_sub_mul8 a")
+    _check(r4, (4, NLIMBS, batch), "ladder_sub_mul8 r")
+    _check(s_digits, (64, batch), "ladder_sub_mul8 s_digits")
+    _check(k_digits, (64, batch), "ladder_sub_mul8 k_digits")
+    _check(base_niels, (9, 3, NLIMBS), "ladder_sub_mul8 base_niels")
+    for t in (r4, s_digits, k_digits, base_niels):
+        if t.device != a4.device:
+            raise ValueError("ladder_sub_mul8: operands on different devices")
+    f = _fn("curve_kernels", "ladder_sub_mul8_launch")
+    out = torch.empty((3, NLIMBS, batch), dtype=torch.int32, device=a4.device)
+    _launch(f, "ladder_sub_mul8", a4.device, batch,
+            a4.data_ptr(), r4.data_ptr(), s_digits.data_ptr(), k_digits.data_ptr(),
+            base_niels.data_ptr(), out.data_ptr())
+    return out

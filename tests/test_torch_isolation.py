@@ -1,0 +1,129 @@
+"""The port stands alone and never falls back.
+
+- Importing every module of `cometbft_tpu_torch`, and `chip_smoke`, loads
+  neither JAX nor `cometbft_tpu`.
+- A kernel wrapper handed a CUDA request with no kernel library raises; it
+  does not run the plain version instead. A CPU tensor never reaches a
+  kernel launcher.
+"""
+
+import subprocess
+import sys
+import textwrap
+import types
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cometbft_tpu_torch.ops import field as F  # noqa: E402
+from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.path.insert(0, {str(ROOT)!r})
+        import cometbft_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(cometbft_tpu_torch.__path__,
+                                                        "cometbft_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu"))
+        print(len(names), bad)
+        sys.exit(1 if bad or len(names) < 12 else 0)
+    """)
+    # -I: no PYTHON* variables and no user site, so nothing preloads JAX
+    res = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def fake_cuda_tensor(shape):
+    """Stands in for a CUDA int32 tensor on a host whose torch has no CUDA:
+    it passes the wrappers' device, dtype, shape and layout checks."""
+    t = types.SimpleNamespace(
+        device=torch.device("cuda"), dtype=torch.int32, shape=torch.Size(shape),
+        is_contiguous=lambda: True, data_ptr=lambda: 0,
+    )
+    t.contiguous = lambda: t
+    return t
+
+
+@pytest.fixture
+def no_nvcc(monkeypatch, tmp_path):
+    """No kernel library loaded, no nvcc on PATH or under CUDA_HOME, and an
+    empty build directory."""
+    monkeypatch.setattr(K, "_libs", {})
+    monkeypatch.setattr(K, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path / "bin"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    return tmp_path
+
+
+def test_build_without_nvcc_raises(no_nvcc):
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.build()
+
+
+def test_failed_build_raises(no_nvcc):
+    nvcc = no_nvcc / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: no compiler here' >&2\nexit 2\n")
+    nvcc.chmod(0o755)
+    with pytest.raises(RuntimeError, match="CUDA kernel build failed"):
+        K.build()
+    assert not list((no_nvcc / "build").rglob("*.so"))
+
+
+def test_cuda_requests_without_a_library_raise(no_nvcc):
+    a = fake_cuda_tensor((F.NLIMBS, 8))
+    before = dict(K.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.fe_mul(a, a)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        F.mul(a, a)  # the dispatching wrapper: no plain fallback either
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        F.sq(a)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.decompress(a, fake_cuda_tensor((1, 8)))
+    digits = fake_cuda_tensor((64, 8))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.ladder_sub_mul8(fake_cuda_tensor((4, F.NLIMBS, 8)), fake_cuda_tensor((4, F.NLIMBS, 8)),
+                          digits, digits, fake_cuda_tensor((9, 3, F.NLIMBS)))
+    assert K.launches == before
+
+
+def test_launchers_refuse_cpu_tensors():
+    a = torch.zeros((F.NLIMBS, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fe_mul(a, a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fe_sq(a)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.decompress(a, torch.zeros((1, 4), dtype=torch.int32))
+
+
+def test_launchers_check_dtype_and_shape():
+    a = fake_cuda_tensor((F.NLIMBS, 8))
+    wrong = types.SimpleNamespace(**{**vars(a), "dtype": torch.int64})
+    with pytest.raises(ValueError, match="int32"):
+        K.fe_mul(a, wrong)
+    with pytest.raises(ValueError, match="shape"):
+        K.fe_mul(a, fake_cuda_tensor((F.NLIMBS, 9)))
+    with pytest.raises(ValueError, match="shape"):
+        K.decompress(a, fake_cuda_tensor((8,)))
+
+
+def test_build_dir_is_keyed_by_the_sources():
+    d = K.build_dir()
+    assert d.parent == K.BUILD_ROOT and len(d.name) == 16
+    assert K.build_dir() == d
+    assert {p.name for p in K._sources()} >= {
+        "field25519.cuh", "field_kernels.cu", "curve_kernels.cu"}
+

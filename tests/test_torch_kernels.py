@@ -1,0 +1,112 @@
+"""The CUDA kernels of `cometbft_tpu_torch` against their plain PyTorch
+versions, on the card. Every test here needs a CUDA GPU and nvcc, and skips
+without them. Run them on a machine with the card by
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
+
+(`--noconftest`: the suite's conftest configures JAX, which that machine
+need not have). Exact agreement after `freeze`: integer arithmetic.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from cometbft_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
+from cometbft_tpu_torch.ops import curve as C  # noqa: E402
+from cometbft_tpu_torch.ops import field as F  # noqa: E402
+from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels are built with nvcc and run only on the card")
+    return torch.device("cuda")
+
+
+def loose(rng, n):
+    a = np.empty((F.NLIMBS, n), np.int32)
+    a[0] = rng.integers(0, 13824, n)
+    a[1:] = rng.integers(0, 4300, (F.NLIMBS - 1, n))
+    a[:, : min(n, 1)] = 0
+    if n > 1:
+        a[0, 1], a[1:, 1] = 13823, 4299
+    if n > 2:
+        a[:, 2] = F.P_LIMBS
+    return a
+
+
+def frozen_equal(got, want):
+    return torch.equal(F.freeze(got), F.freeze(want))
+
+
+@pytest.mark.parametrize("n", [1, 33, 257, 4096])
+def test_fe_mul_sq_match_plain(dev, n):
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(loose(rng, n)).to(dev)
+    b = torch.from_numpy(loose(rng, n)).to(dev)
+    before = dict(K.launches)
+    got_mul, got_sq = F.mul(a, b), F.sq(a)
+    assert K.launches["fe_mul"] == before["fe_mul"] + 1
+    assert K.launches["fe_sq"] == before["fe_sq"] + 1
+    assert frozen_equal(got_mul, F.mul_plain(a, b))
+    assert frozen_equal(got_sq, F.sq_plain(a))
+    assert torch.equal(got_mul, F.freeze(got_mul))  # canonical output
+
+
+def test_decompress_matches_plain(dev):
+    rng = np.random.default_rng(1)
+    P = F.P_INT
+    encs = rng.integers(0, 256, (300, 32), dtype=np.uint8)
+    for i, y in enumerate([1, 1 + P, 0, P, P + 18, 2, 3]):
+        encs[i] = np.frombuffer(y.to_bytes(32, "little"), np.uint8)
+    encs[7] = encs[0]
+    encs[7, 31] |= 0x80
+    for i in range(8, 40):
+        k = int.from_bytes(rng.bytes(32), "little") % ref.L
+        encs[i] = np.frombuffer(
+            ref._encode_point(*ref._ext_to_affine(ref._ext_scalar_mul(k, ref.B_POINT))), np.uint8)
+    t = torch.from_numpy(encs).to(dev)
+    valid, pt = C.decompress(t)
+    sign, y = C._split_encoding(t)
+    pv, px, ptt = C.decompress_plain(y, sign)
+    assert torch.equal(valid, pv)
+    assert frozen_equal(pt[0], px) and frozen_equal(pt[3], ptt)
+    assert valid.cpu().tolist() == [
+        ref._decode_point(e.tobytes(), zip215=True) is not None for e in encs]
+
+
+def test_ladder_sub_mul8_matches_plain(dev):
+    rng = np.random.default_rng(2)
+    n = 70
+    encs = np.stack([np.frombuffer(ref._encode_point(*ref._ext_to_affine(
+        ref._ext_scalar_mul(int.from_bytes(rng.bytes(32), "little") % ref.L, ref.B_POINT))),
+        np.uint8) for _ in range(2 * n)])
+    ok, pts = C.decompress(torch.from_numpy(encs).to(dev))
+    assert ok.all()
+    a = C.neg(tuple(c[:, :n].contiguous() for c in pts))
+    r = tuple(c[:, n:].contiguous() for c in pts)
+    sd = torch.from_numpy(rng.integers(-8, 8, (64, n), dtype=np.int32)).to(dev)
+    kd = torch.from_numpy(rng.integers(-8, 8, (64, n), dtype=np.int32)).to(dev)
+    got = C.ladder_sub_mul8(sd, kd, a, r)
+    want = C.ladder_sub_mul8_plain(sd, kd, a, r)
+    assert all(frozen_equal(g, w) for g, w in zip(got, want))
+
+
+def test_verifier_on_the_card(dev):
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519BatchVerifier, Ed25519PubKey
+    from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
+
+    items = generate_signed_batch(50, seed=3, device=dev)
+    bv = Ed25519BatchVerifier(device=dev)
+    for i, (pub, msg, sig) in enumerate(items):
+        bv.add(Ed25519PubKey(pub), msg + (b"!" if i == 7 else b""), sig)
+    ok, bits = bv.verify()
+    assert not ok and [i for i, b in enumerate(bits) if not b] == [7]
+    assert generate_signed_batch(8, seed=3, device="cpu") == generate_signed_batch(
+        8, seed=3, device=dev)
