@@ -8,14 +8,13 @@ to per-signature verification (reference types/validation.go:26-53).
 
 from __future__ import annotations
 
+from . import ed25519
 from .keys import BatchVerifier, PubKey
 
 
 def create_batch_verifier(pub_key: PubKey, device="cuda") -> BatchVerifier | None:
     """A fresh batch verifier on `device` for this key's type, or None if
     the type has no batch support here."""
-    from . import ed25519
-
     if pub_key.type_tag() == ed25519.KEY_TYPE:
         return ed25519.Ed25519BatchVerifier(device=device)
     return None

@@ -100,7 +100,6 @@ class Ed25519BatchVerifier(BatchVerifier):
 
     def __init__(self, device="cuda"):
         self.device = _resolve_device(device)
-        self._items: list[tuple[bytes, bytes, bytes]] = []
         self._precheck_fail: list[bool] = []
         # wire blobs accumulate at add() time (one memcpy per add instead
         # of a join sweep at submit)
@@ -108,23 +107,6 @@ class Ed25519BatchVerifier(BatchVerifier):
         self._sig_buf = bytearray()
         self._msg_buf = bytearray()
         self._msg_lens: list[int] = []
-        # add_batch columns, expanded into _items only on demand
-        self._lazy: list[tuple] = []
-
-    def _materialize(self) -> None:
-        if not self._lazy:
-            return
-        for pub_rows, sig_rows, msg_blob, lens in self._lazy:
-            off = 0
-            for i in range(len(lens)):
-                ln = int(lens[i])
-                self._items.append((
-                    pub_rows[i].tobytes(),
-                    bytes(msg_blob[off:off + ln]),
-                    sig_rows[i].tobytes(),
-                ))
-                off += ln
-        self._lazy.clear()
 
     def add_batch(self, pub_rows, sig_rows, msg_blob, msg_lens) -> None:
         """Vectorized add() for a whole commit's worth of ed25519 lanes.
@@ -150,18 +132,15 @@ class Ed25519BatchVerifier(BatchVerifier):
         self._sig_buf += sig_rows.tobytes()
         self._msg_buf += msg_blob
         self._msg_lens.extend(int(x) for x in msg_lens)
-        self._lazy.append((pub_rows, sig_rows, msg_blob, msg_lens))
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> bool:
         if pub_key.type_tag() != KEY_TYPE:
             return False
-        self._materialize()
         ok = len(sig) == SIG_SIZE
         if ok:
             ok = int.from_bytes(sig[32:], "little") < _L  # ZIP-215: reject S >= L
         pub = pub_key.bytes()
         sig_eff = sig if ok else b"\x00" * 64
-        self._items.append((pub, msg, sig_eff))
         self._precheck_fail.append(not ok)
         self._pub_buf += pub
         self._sig_buf += sig_eff

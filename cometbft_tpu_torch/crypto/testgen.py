@@ -16,6 +16,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..ops import curve as C
 from . import ed25519_ref as ref
 
 
@@ -28,8 +29,6 @@ def generate_signed_batch(
     vote_shaped=True mirrors canonical precommit sign bytes (reference
     types/canonical.go): a commit-invariant prefix, ~8 bytes of per-vote
     timestamp in the middle, and a shared chain-id suffix."""
-    from ..ops import curve as C
-
     rng = np.random.default_rng(seed)
     a_sc = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(n)]
     r_sc = [int.from_bytes(rng.bytes(32), "little") % ref.L for _ in range(n)]

@@ -17,7 +17,6 @@ import numpy as np  # noqa: E402
 
 from cometbft_tpu.crypto import ed25519_ref as jref  # noqa: E402
 from cometbft_tpu.ops import curve as JC  # noqa: E402
-from cometbft_tpu.ops import field as JF  # noqa: E402
 from cometbft_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
 from cometbft_tpu_torch.ops import curve as C  # noqa: E402
 from cometbft_tpu_torch.ops import field as F  # noqa: E402
