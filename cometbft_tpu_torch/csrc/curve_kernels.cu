@@ -5,8 +5,8 @@
 //
 // decompress_kernel replaces cometbft_tpu/ops/curve.py:_decompress_kernel
 // (launched by _decompress_pallas, reached through curve.decompress).
-//   Bound on the H100: operations. 276 field products per lane (252 of
-//   them the squarings of pow2523) against 88 B read and 180 B written.
+//   Bound on the H100: operations. 275 field products per lane (251 of
+//   them the squarings of pow2523) against 92 B read and 180 B written.
 //   Design: straight-line per thread, pow2523 as squaring loops; the
 //   square-root checks and sign fix are masked selects, not branches.
 //

@@ -163,7 +163,7 @@ __device__ __forceinline__ fe fe_sqn(fe x, int n) {
 }
 
 // x^((p-5)/8) = x^(2^252 - 3): the reference's addition chain
-// (field.py pow2523), 252 squarings and 11 multiplies.
+// (field.py pow2523), 251 squarings and 11 multiplies.
 __device__ __noinline__ fe fe_pow2523(fe x) {
   const fe x2 = fe_sq(x);
   const fe x9 = fe_mul(fe_sq(fe_sq(x2)), x);

@@ -265,7 +265,7 @@ def sqn(x, n: int, sq=sq):
 
 def pow2523(x, mul=mul, sq=sq):
     """x^((p-5)/8) = x^(2^252 - 3): the reference's addition chain
-    (11 muls + 252 squarings)."""
+    (11 muls + 251 squarings; the reference's docstring says 252)."""
     x2 = sq(x)  # x^2
     x9 = mul(sq(sq(x2)), x)  # x^9
     x11 = mul(x9, x2)  # x^11
