@@ -12,19 +12,29 @@ and never prints its last line):
    process per source, all at once) and print the build seconds and the
    `ptxas -v` register and spill lines;
 3. hold each kernel against its plain PyTorch version on the card at
-   B = 10,240 (the ladder on a 1,024-lane sub-batch): exact agreement
-   after `freeze`, zero mismatches allowed, and outputs inside the loose
-   limb invariant; time kernel and plain version with CUDA events;
-4. the main path, with every launch count set to 0 just before it:
-   two vote-shaped 10,000-signature commits generated on the card
-   (`crypto.testgen`, through the field kernels), 16 of them verified
-   through `crypto.batch.create_batch_verifier` -> `add_batch` ->
-   `submit` with one `collect_pending` (twice: cold and warm pubkey
-   cache), then one commit with fixed bad lanes whose bitmap must be
-   exact and agree with the pure-Python oracle on a 256-lane sample;
-   the counts are read right after, and a kernel of the path that was
-   never launched is an error. A stage split of one warm commit (host
-   pack and hash, H2D, device, D2H) follows;
+   B = 10,240 (the ladder on a 1,024-lane sub-batch; `accum_weight` at
+   WK = 19,968 bucket lanes on the gather table, weights and round count
+   of one real 10,000-signature commit laid out with z from `--seed`):
+   exact agreement after `freeze`, zero mismatches allowed, and outputs
+   inside the loose limb invariant; time kernel and plain version with
+   CUDA events, and the kernel alone in the profiler;
+4. the main path, two routes, each with every launch count set to 0
+   just before it and read right after; a kernel of the route that was
+   never launched is an error:
+   - the ladder route: two vote-shaped 10,000-signature commits
+     generated on the card (`crypto.testgen`, through the field
+     kernels), 16 of them verified through
+     `crypto.batch.create_batch_verifier` -> `add_batch` -> `submit`
+     with one `collect_pending` (twice: cold and warm pubkey cache),
+     then one commit with fixed bad lanes whose bitmap must be exact and
+     agree with the pure-Python oracle on a 256-lane sample;
+   - the RLC/MSM route, pinned through the dispatch seam
+     (`crypto.ed25519._rlc_beats_ladder`): the same 16 commits, cold and
+     warm, all of which must verify, then the bad-lane commit, whose
+     all-ok scalar must be false and whose blame rerun must give the
+     exact bitmap; every one of the five kernels must have launched.
+   A stage split of one warm commit of each route (host pack, H2D,
+   device, D2H) and a profile of its device kernels follow;
 5. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound;
 6. the card's name and power limit, then the last line
@@ -70,6 +80,7 @@ SOURCES = {
     "decompress": ("cometbft_tpu_torch/csrc/curve_kernels.cu", "cometbft_tpu/ops/curve.py:172"),
     "ladder_sub_mul8": ("cometbft_tpu_torch/csrc/curve_kernels.cu",
                         "cometbft_tpu/ops/curve.py:379"),
+    "accum_weight": ("cometbft_tpu_torch/csrc/msm_kernels.cu", "cometbft_tpu/ops/msm.py:68"),
 }
 
 
@@ -201,11 +212,13 @@ def submit_commit(cols, device):
     return bv.submit()
 
 
-def products_per_lane():
+def products_per_lane(s_rounds: int):
     """Field products (mul or sq) per lane of each kernel, counted by running
-    its plain version on one CPU lane through counting routes."""
+    its plain version on one CPU lane through counting routes;
+    `accum_weight` at `s_rounds` rounds."""
     from cometbft_tpu_torch.ops import curve as C
     from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import msm as M
 
     count = [0]
 
@@ -225,7 +238,14 @@ def products_per_lane():
     pt = C.identity(1, "cpu")
     digits = torch.zeros((64, 1), dtype=torch.int32)
     ops.ladder_sub_mul8_value(digits, digits, pt, pt)
-    return {"fe_mul": 1, "fe_sq": 1, "decompress": n_dec, "ladder_sub_mul8": count[0]}
+    n_ladder = count[0]
+    count[0] = 0
+    niels = M._identity_niels(1, "cpu")
+    idx = torch.zeros((s_rounds, 1), dtype=torch.int32)
+    acc = M._accumulate(niels, idx, idx != 0, ops=ops)
+    M._weight_step(ops, acc, torch.zeros(1, dtype=torch.int32))
+    return {"fe_mul": 1, "fe_sq": 1, "decompress": n_dec, "ladder_sub_mul8": n_ladder,
+            "accum_weight": count[0]}
 
 
 def main(argv=None) -> int:
@@ -242,13 +262,16 @@ def main(argv=None) -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     sys.path.insert(0, str(ROOT))
+    from cometbft_tpu_torch.crypto import ed25519 as E
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import rlc
     from cometbft_tpu_torch.crypto.ed25519 import collect_pending
     from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
     from cometbft_tpu_torch.ops import curve as C
     from cometbft_tpu_torch.ops import ed25519_verify as V
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.ops import msm as M
 
     dev = torch.device("cuda")
     props = torch.cuda.get_device_properties(0)
@@ -278,7 +301,7 @@ def main(argv=None) -> int:
     # ---- phase 3: each kernel against its plain version at the path's shapes
     rng = np.random.default_rng(args.seed)
     kern = {}
-    per_lane = products_per_lane()
+    per_lane = products_per_lane(8)  # accum_weight's is recounted at the commit's S below
 
     def record(name, mism, err, kernel_fn, plain_fn, reps, batch, nbytes):
         """Time the kernel (CUDA events around back-to-back calls, and its
@@ -382,9 +405,45 @@ def main(argv=None) -> int:
            lambda: C.ladder_sub_mul8_plain(sd, kd, neg_a, r_pt), 10, B,
            (8 * 88 + 2 * 256 + 264) * B + base.numel() * 4)
     del a, b, encs, y, x, t, px, pt, a4, r4, full, sd, kd
+
+    # accum_weight: the layout of one real 10,000-signature commit, z from --seed
+    t0 = time.perf_counter()
+    items = generate_signed_batch(COMMIT_SIGS, seed=args.seed, msg_len=100, vote_shaped=True,
+                                  device=dev)
+    z16 = np.random.default_rng(args.seed).integers(0, 256, (COMMIT_SIGS, 16), dtype=np.uint8)
+    prep = rlc.prepare(items, np.zeros(COMMIT_SIGS, bool), B, z16)
+    s_pad = 8
+    while s_pad < prep["s_rounds"]:
+        s_pad *= 2
+    gather_idx, gather_neg = M.expand_stream(
+        *(torch.from_numpy(prep[k].astype(np.int32)).to(dev)
+          for k in ("stream", "stream_neg", "counts")), s_pad)
+    encs = np.zeros((2 * B, 32), np.uint8)
+    for i, (pub, _, sig) in enumerate(items):
+        encs[i] = np.frombuffer(sig[:32], np.uint8)  # R_i at i
+        encs[B + i] = np.frombuffer(pub, np.uint8)  # A_i at B + i
+    _, pts = C.decompress(torch.from_numpy(encs).to(dev))
+    niels = tuple(torch.cat([c, i], dim=1).contiguous() for c, i in zip(
+        C.to_niels(pts)[:3], M._identity_niels(1, dev)))
+    weights = torch.from_numpy(prep["weights"].reshape(-1)).to(dev)
+    neg32 = gather_neg.to(torch.int32)
+    log(f"accum_weight input: one commit laid out in {time.perf_counter() - t0:.2f} s, "
+        f"s_rounds {prep['s_rounds']}, S = {s_pad}, WK = {M.WK}, M = {2 * B + 1} points")
+    per_lane["accum_weight"] = products_per_lane(s_pad)["accum_weight"]
+    got = torch.stack(M.accumulate_weighted(niels, gather_idx, gather_neg, weights))
+    check_loose("accum_weight", got)
+    want = torch.stack(M.accumulate_weighted_plain(niels, gather_idx, gather_neg, weights))
+    mism, err = frozen_diff(F, got, want)
+    n_pts = niels[0].shape[1]
+    record("accum_weight", mism, err, lambda: K.accum_weight(niels, gather_idx, neg32, weights),
+           lambda: M.accumulate_weighted_plain(niels, gather_idx, gather_neg, weights), 20, M.WK,
+           3 * 88 * n_pts + 2 * 4 * s_pad * M.WK + 4 * M.WK + 4 * 88 * M.WK)
+    kern["accum_weight"].update(s_rounds=prep["s_rounds"], s_pad=s_pad)
+    del items, got, want, gather_idx, gather_neg, neg32, niels, weights, pts, encs
     torch.cuda.synchronize()
 
-    # ---- phase 4: the main path, counted
+    # ---- phase 4: the main path, counted, route by route
+    # (a) the ladder route
     K.reset_launches()
     t0 = time.perf_counter()
     commits = [generate_signed_batch(COMMIT_SIGS, seed=args.seed + i, msg_len=100,
@@ -394,6 +453,7 @@ def main(argv=None) -> int:
     cols = [to_columns(c) for c in commits]
 
     def pipeline():
+        """16 commits submitted back to back, then one collect_pending."""
         torch.cuda.synchronize()
         t_start = time.perf_counter()
         pend = [submit_commit(cols[i % 2], dev) for i in range(PIPELINE_DEPTH)]
@@ -407,8 +467,8 @@ def main(argv=None) -> int:
     cold_s, _ = pipeline()
     warm_s, warm_submit_s = pipeline()
     sigs_per_s = PIPELINE_DEPTH * COMMIT_SIGS / warm_s
-    log(f"pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold pubkey cache "
-        f"{cold_s:.3f} s, warm {warm_s:.3f} s (submits {warm_submit_s:.3f} s) -> "
+    log(f"ladder pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold pubkey "
+        f"cache {cold_s:.3f} s, warm {warm_s:.3f} s (submits {warm_submit_s:.3f} s) -> "
         f"{sigs_per_s:.0f} sigs/s on {card}")
 
     # one commit with fixed bad lanes
@@ -428,28 +488,62 @@ def main(argv=None) -> int:
     expect = [False, False, False, True, True] + [True] * (COMMIT_SIGS - 5)
     if [ref.verify(p, m, s) for p, m, s in items[:5]] != expect[:5]:
         raise AssertionError("the bad-lane construction does not give the intended verdicts")
-    ok, bits = submit_commit(to_columns(items), dev).result()
-    if ok or bits != expect:
-        wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
-        raise AssertionError(f"bad-lane commit: bitmap wrong at lanes {wrong[:20]}")
+    bad_cols = to_columns(items)
     sample = [0, 1, 2, 3, 4] + sorted(
         rng.choice(np.arange(5, COMMIT_SIGS), ORACLE_SAMPLE - 5, replace=False).tolist())
-    if [bits[i] for i in sample] != [ref.verify(*items[i]) for i in sample]:
-        raise AssertionError("bitmap disagrees with ed25519_ref.verify on the sample")
-    log(f"bad-lane commit: bitmap exact (lanes 0-2 rejected, torsion lanes 3-4 accepted); "
-        f"{ORACLE_SAMPLE}-lane sample agrees with ed25519_ref.verify")
+    oracle = [ref.verify(*items[i]) for i in sample]
 
-    torch.cuda.synchronize()
-    counts = dict(K.launches)
+    def check_bad_lanes(route, pending):
+        ok, bits = pending.result()
+        if ok or bits != expect:
+            wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
+            raise AssertionError(f"{route} bad-lane commit: bitmap wrong at lanes {wrong[:20]}")
+        if [bits[i] for i in sample] != oracle:
+            raise AssertionError(f"{route}: bitmap disagrees with ed25519_ref.verify on the sample")
+        log(f"{route} bad-lane commit: bitmap exact (lanes 0-2 rejected, torsion lanes 3-4 "
+            f"accepted); {ORACLE_SAMPLE}-lane sample agrees with ed25519_ref.verify")
+
+    check_bad_lanes("ladder", submit_commit(bad_cols, dev))
+
+    def read_counts(route, expected):
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        log(f"{route} route launches: {counts}")
+        for name in expected:
+            if counts[name] == 0:
+                raise AssertionError(f"kernel {name} was never launched on the {route} route")
+        return counts
+
+    counts = read_counts("ladder", ("fe_mul", "fe_sq", "decompress", "ladder_sub_mul8"))
     commits_verified = 2 * PIPELINE_DEPTH + 1
-    log(f"main-path launches: {counts} over {commits_verified} commit verifications "
-        f"and 2 generated commits")
-    for name, c in counts.items():
-        if c == 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
-        kern[name]["launches"] = c
-    kern["decompress"]["launches_per_commit"] = 1  # R; A once per validator set
+    log(f"  over {commits_verified} commit verifications and 2 generated commits")
+
+    # (b) the RLC/MSM route: the same commits, pinned through the dispatch seam
+    K.reset_launches()
+    seam = E._rlc_beats_ladder
+    E._rlc_beats_ladder = lambda n, b: True
+    try:
+        rlc_cold_s, _ = pipeline()
+        rlc_warm_s, rlc_warm_submit_s = pipeline()
+        bad = submit_commit(bad_cols, dev)
+        if not isinstance(bad, E.PendingRLC) or bool(bad._all_ok.item()):
+            raise AssertionError("bad-lane commit: the RLC all-ok scalar is not false")
+        check_bad_lanes("RLC (blame rerun)", bad)
+        rlc_counts = read_counts("RLC", tuple(K.launches))
+    finally:
+        E._rlc_beats_ladder = seam
+    rlc_sigs_per_s = PIPELINE_DEPTH * COMMIT_SIGS / rlc_warm_s
+    log(f"RLC pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold "
+        f"{rlc_cold_s:.3f} s, warm {rlc_warm_s:.3f} s (submits {rlc_warm_submit_s:.3f} s) -> "
+        f"{rlc_sigs_per_s:.0f} sigs/s on {card}")
+    log(f"sigs/s, warm, same call: ladder {sigs_per_s:.0f}, RLC {rlc_sigs_per_s:.0f} [{card}]")
+    rlc_commits = 2 * PIPELINE_DEPTH + 1
+    for name in SOURCES:
+        kern[name]["launches"] = counts[name] + rlc_counts[name]
+        kern[name]["launches_by_route"] = {"ladder": counts[name], "rlc": rlc_counts[name]}
+    kern["decompress"]["launches_per_commit"] = {"ladder": 1, "rlc": 2}  # ladder: A once per set
     kern["ladder_sub_mul8"]["launches_per_commit"] = counts["ladder_sub_mul8"] / commits_verified
+    kern["accum_weight"]["launches_per_commit"] = rlc_counts["accum_weight"] / rlc_commits
 
     # stage split of one warm commit (not counted: the counts were read above)
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
@@ -502,8 +596,52 @@ def main(argv=None) -> int:
     stage["profiled_device_kernels"] = len(dev_events)
     stage["profiled_device_busy_ms"] = busy_ms
 
+    # the RLC route's stage split, the same warm commit
+    rlc_stage = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf_host, fields, s_commit = bv._pack_rlc()
+    rlc_stage["host_prepare_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    ev[0].record()
+    buf = buf_host.to(dev, non_blocking=True)
+    ev[1].record()
+    ok_dev = E.verify_rlc_packed(buf, fields, s_commit)
+    ev[2].record()
+    torch.cuda.synchronize()
+    rlc_stage["h2d_ms"] = ev[0].elapsed_time(ev[1])
+    rlc_stage["device_ms"] = ev[1].elapsed_time(ev[2])
+    t0 = time.perf_counter()
+    if not bool(ok_dev.item()):
+        raise AssertionError("RLC stage-split commit did not verify")
+    rlc_stage["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+    rlc_stage["s_pad"] = s_commit
+    rlc_stage["kernels_ms"] = 2 * kern["decompress"]["ms"] + kern["accum_weight"]["ms"]
+    rlc_stage["torch_glue_and_tail_ms"] = rlc_stage["device_ms"] - rlc_stage["kernels_ms"]
+    rlc_stage["h2d_bytes_per_lane"] = buf_host.numel() / n_lanes
+    log("RLC stage split, one warm 10,000-signature commit: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rlc_stage.items()) + f" [{card}]")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        E.verify_rlc_packed(buf, fields, s_commit).item()
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kernel = {name: sum(1 for e in dev_events if f"{name}_kernel" in e.name)
+                 for name in SOURCES}
+    busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    (OUT_DIR / "profile_rlc_commit.txt").write_text(table)
+    log(f"profile, one warm RLC commit: {len(dev_events)} device kernels ({by_kernel}), "
+        f"{busy_ms:.3f} ms busy")
+    for ln in table.splitlines()[:16]:
+        log("profile:", ln)
+    rlc_stage["profiled_device_kernels"] = len(dev_events)
+    rlc_stage["profiled_kernels_by_name"] = by_kernel
+    rlc_stage["profiled_device_busy_ms"] = busy_ms
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
-                   pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts)
+                   pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
+                   rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
+                   rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
+                   rlc_counts=rlc_counts)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))
 
     # ---- phase 5 and 6: the kernel line, the card, the contract line

@@ -1,8 +1,8 @@
 """Ed25519 public keys and the GPU batch verifier.
 
 Twin of the commit-verify subset of `cometbft_tpu/crypto/ed25519.py`.
-`Ed25519BatchVerifier.submit()` has one route, the prehashed per-lane
-ladder:
+`Ed25519BatchVerifier.submit()` has two routes. The prehashed per-lane
+ladder is the default:
 
 - the host packs (b, 96) R||S||k rows, with k = SHA-512(R||A||M) mod L
   hashed by hashlib, straight into a pinned buffer, and copies it to the
@@ -13,6 +13,15 @@ ladder:
   ladder kernels and leaves (bitmap, all-ok) on the device;
 - `PendingBatch` / `collect_pending` fetch one all-ok scalar per batch,
   and the bitmap only when that scalar says some lane failed.
+
+The RLC/MSM route (`_launch_rlc`) verifies the whole batch as one
+multi-scalar multiplication (`ops.msm`): the host lays out the digit
+stream (`crypto.rlc.prepare`), one pinned buffer crosses to the device,
+and one all-ok scalar comes back (`PendingRLC`); when it is false, the
+batch reruns on the ladder route to find the failing lanes. `submit()`
+takes it for n >= RLC_MIN when `_rlc_beats_ladder(n, bucket)` says so,
+which it does not until the dispatch is calibrated on the GPU; tests and
+`chip_smoke.py` pin that seam.
 
 Behavior parity: reference crypto/ed25519/ed25519.go (verify :180-187
 with ZIP-215 options :36-41, batch :207-240). A verifier made for
@@ -28,7 +37,9 @@ import numpy as np
 import torch
 
 from ..ops.ed25519_verify import decompress_pubkeys, verify_batch_cached_a
+from ..ops.msm import rlc_verify_stream
 from . import ed25519_ref as ref
+from . import rlc as _rlc
 from .keys import BatchVerifier, PubKey, tmhash20
 
 KEY_TYPE = "tendermint/PubKeyEd25519"
@@ -38,6 +49,10 @@ SIG_SIZE = 64
 # Padded batch buckets (the reference's): 10240 exists for the
 # 10k-validator commit, which 16384 would pad by 38%.
 BUCKETS = (64, 256, 1024, 4096, 10240, 16384, 65536)
+
+# At and above this size the RLC/MSM route is considered instead of the
+# per-lane ladder (the reference's threshold).
+RLC_MIN = 4096
 
 _L = ref.L
 # big-endian bytes of the group order, for the vectorized S < L precheck
@@ -49,6 +64,13 @@ _L_BE = np.frombuffer(_L.to_bytes(32, "big"), np.uint8)
 _A_CACHE: dict = {}
 _A_CACHE_SIZE = 4
 _A_LOCK = threading.Lock()
+
+
+def _rlc_beats_ladder(n: int, b: int) -> bool:
+    """Whether the RLC/MSM route should take an n-lane batch in bucket b.
+    False until the dispatch between the two routes is calibrated on the
+    GPU: the reference's terms were measured on a TPU."""
+    return False
 
 
 def _bucket(n: int) -> int:
@@ -98,8 +120,10 @@ class Ed25519BatchVerifier(BatchVerifier):
     """Batch verifier on `device` ("cuda" by default; "cpu" runs the
     kernels' plain PyTorch versions)."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", force_perlane: bool = False):
         self.device = _resolve_device(device)
+        # pins the per-lane ladder route (the RLC route's blame rerun)
+        self._force_perlane = force_perlane
         self._precheck_fail: list[bool] = []
         # wire blobs accumulate at add() time (one memcpy per add instead
         # of a join sweep at submit)
@@ -151,12 +175,37 @@ class Ed25519BatchVerifier(BatchVerifier):
     def count(self) -> int:
         return len(self._precheck_fail)
 
+    def absorb(self, other: "Ed25519BatchVerifier") -> tuple[int, int]:
+        """Append every queued lane of `other` onto this verifier, keeping
+        order and precheck verdicts; returns the half-open lane range
+        [start, end) the absorbed lanes occupy here. `other` is left as
+        it was."""
+        start = self.count()
+        self._precheck_fail.extend(other._precheck_fail)
+        self._pub_buf += other._pub_buf
+        self._sig_buf += other._sig_buf
+        self._msg_buf += other._msg_buf
+        self._msg_lens.extend(other._msg_lens)
+        return start, self.count()
+
+    def _items(self) -> list[tuple[bytes, bytes, bytes]]:
+        """The queued lanes as (pub, msg, sig) tuples (a precheck failure
+        carries its zeroed signature)."""
+        out = []
+        off = 0
+        for i, ln in enumerate(self._msg_lens):
+            out.append((bytes(self._pub_buf[32 * i : 32 * i + 32]),
+                        bytes(self._msg_buf[off : off + ln]),
+                        bytes(self._sig_buf[64 * i : 64 * i + 64])))
+            off += ln
+        return out
+
     def verify(self) -> tuple[bool, list[bool]]:
         if not self.count():
             return False, []
         return self.submit().result()
 
-    def submit(self) -> "PendingBatch | DonePending":
+    def submit(self) -> "PendingBatch | PendingRLC | DonePending":
         """Launch device verification without blocking on the result.
 
         A pipeline that submits several batches and collects them together
@@ -165,6 +214,10 @@ class Ed25519BatchVerifier(BatchVerifier):
         n = self.count()
         if n == 0:
             return DonePending(True, [])
+        if not self._force_perlane and n >= RLC_MIN and _rlc_beats_ladder(n, _bucket(n)):
+            pending = self._launch_rlc()
+            if pending is not None:
+                return pending
         bits, all_ok = self._launch_device()
         # snapshot: the verifier may be reused after submit()
         return PendingBatch(bits, all_ok, n, list(self._precheck_fail))
@@ -220,6 +273,81 @@ class Ed25519BatchVerifier(BatchVerifier):
         live = torch.arange(b, device=self.device) < n
         return verify_batch_cached_a(ok_a, neg_a, rsk, live)
 
+    def _pack_rlc(self, z16=None):
+        """Host half of the RLC route: the digit layout (`rlc.prepare`) and
+        every array the device needs, packed into one zeroed (pinned, for
+        a GPU) uint8 buffer. Returns (buffer, fields, s_pad), or None when
+        the layout declines the batch. z16 pins the coefficients (tests)."""
+        n = self.count()
+        b = _bucket(n)
+        skip = np.asarray(self._precheck_fail, bool)
+        prep = _rlc.prepare(self._items(), skip, b, z16)
+        if prep is None:
+            return None
+        # pad the round count to a power of two (min 8), the reference's
+        # tiering, so both packages run the same S
+        s_pad = 8
+        while s_pad < prep["s_rounds"]:
+            s_pad *= 2
+        a = np.zeros((b, 32), np.uint8)
+        a[:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
+        r = np.zeros((b, 32), np.uint8)
+        r[:n] = np.frombuffer(self._sig_buf, np.uint8).reshape(n, 64)[:, :32]
+        live = np.zeros(b, np.uint8)
+        live[:n] = ~skip
+        arrays = {"a": a, "r": r, "live": live,
+                  **{k: prep[k] for k in ("stream", "stream_neg", "counts", "weights",
+                                          "c_digits")}}
+        fields, off = {}, 0
+        for k, arr in arrays.items():
+            fields[k] = (off, arr.dtype, arr.shape)
+            off += -(-arr.nbytes // 4) * 4  # 4-byte aligned, for the int32 views
+        buf, view = self._host_buffer((off,))
+        for k, arr in arrays.items():
+            o = fields[k][0]
+            view[o : o + arr.nbytes] = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+        return buf, fields, s_pad
+
+    def _launch_rlc(self):
+        """RLC/MSM route: one multi-scalar multiplication for the whole
+        batch. Returns None when the host layout declines (bucket slot
+        overflow, or no live lane) so the ladder route takes over."""
+        packed = self._pack_rlc()
+        if packed is None:
+            return None
+        buf, fields, s_pad = packed
+        ok = verify_rlc_packed(buf.to(self.device, non_blocking=True), fields, s_pad)
+        # snapshot for the blame rerun: the verifier may be reused after submit()
+        snap = Ed25519BatchVerifier(self.device, force_perlane=True)
+        snap.absorb(self)
+        return PendingRLC(ok, list(self._precheck_fail), snap)
+
+
+# numpy dtype of a packed field -> the torch dtype its bytes are viewed as.
+# Stream indices are viewed signed (torch's unsigned 16- and 32-bit types
+# have few operators); that is exact, since the layout keeps uint16
+# indices <= 0x7FFF and uint32 indices far below 2^31.
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.int16,
+                 np.dtype(np.uint32): torch.int32, np.dtype(np.int32): torch.int32}
+
+
+def unpack_rlc(buf: torch.Tensor, fields: dict) -> dict:
+    """Views of the fields of a buffer packed by `_pack_rlc`, on its device."""
+    out = {}
+    for k, (off, dt, shape) in fields.items():
+        nbytes = int(np.prod(shape)) * dt.itemsize
+        out[k] = buf[off : off + nbytes].view(_TORCH_DTYPES[dt]).reshape(shape)
+    return out
+
+
+def verify_rlc_packed(buf: torch.Tensor, fields: dict, s_pad: int) -> torch.Tensor:
+    """The device half of the RLC route on a buffer from `_pack_rlc`
+    (already on the device). Returns the all-ok scalar, on the device."""
+    t = unpack_rlc(buf, fields)
+    return rlc_verify_stream(
+        t["a"], t["r"], t["live"] != 0, t["stream"], t["stream_neg"], t["counts"],
+        t["weights"], t["c_digits"], s_rounds=s_pad)
+
 
 class PendingBatch:
     """Handle to an in-flight device batch; result() fetches and finalizes.
@@ -243,6 +371,30 @@ class PendingBatch:
         bits = self._dev[: self._n].cpu().tolist()
         out = [bool(x) and not bad for x, bad in zip(bits, self._precheck_fail)]
         return all(out), out
+
+    def result(self) -> tuple[bool, list[bool]]:
+        return self._finalize_fast(bool(self._all_ok.item()))
+
+
+class PendingRLC:
+    """In-flight RLC/MSM batch: a single device bool. When it is true,
+    every live lane verified (random-linear-combination soundness); when
+    false, the batch reruns on the per-lane ladder route to assign blame,
+    as the reference falls back from batch to single verification
+    (types/validation.go:304-311)."""
+
+    __slots__ = ("_all_ok", "_precheck_fail", "_lanes")
+
+    def __init__(self, all_ok, precheck_fail, lanes: Ed25519BatchVerifier):
+        self._all_ok = all_ok
+        self._precheck_fail = precheck_fail
+        self._lanes = lanes  # force_perlane verifier holding the batch
+
+    def _finalize_fast(self, dev_all_ok: bool) -> tuple[bool, list[bool]]:
+        if dev_all_ok:
+            bits = [not bad for bad in self._precheck_fail]
+            return all(bits), bits
+        return self._lanes.submit().result()
 
     def result(self) -> tuple[bool, list[bool]]:
         return self._finalize_fast(bool(self._all_ok.item()))

@@ -40,10 +40,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-LIBRARIES = ("field_kernels", "curve_kernels")
+LIBRARIES = ("field_kernels", "curve_kernels", "msm_kernels")
 
 # One plain integer per kernel, incremented where the kernel is launched.
-launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0}
+launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0,
+            "accum_weight": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -55,6 +56,9 @@ _SIGNATURES = {
     "curve_kernels": {
         "decompress_launch": [_P, _P, _P, _P, _P, _I64, _P],
         "ladder_sub_mul8_launch": [_P, _P, _P, _P, _P, _P, _I64, _P],
+    },
+    "msm_kernels": {
+        "accum_weight_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
     },
 }
 
@@ -226,4 +230,33 @@ def ladder_sub_mul8(a4: torch.Tensor, r4: torch.Tensor, s_digits: torch.Tensor,
     _launch(f, "ladder_sub_mul8", a4.device, batch,
             a4.data_ptr(), r4.data_ptr(), s_digits.data_ptr(), k_digits.data_ptr(),
             base_niels.data_ptr(), out.data_ptr())
+    return out
+
+
+def accum_weight(niels, gather_idx: torch.Tensor, gather_neg: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """Weighted bucket points of the RLC/MSM route, stacked (4, 22, WK),
+    canonical. niels: (Y+X, Y-X, 2dT), three (22, M) affine niels columns
+    (loose limbs); gather_idx, gather_neg: (S, WK) int32 (index into M,
+    sign flag 0/1); weights: (WK,) int32 in [0, 2^10).
+
+    The table is re-laid out point-major, (M, 3, 22), before the launch,
+    so that each lane's gather reads 264 contiguous bytes."""
+    rounds, lanes = gather_idx.shape
+    points = niels[0].shape[-1]
+    for name, c in zip(("ypx", "ymx", "t2d"), niels):
+        _check(c, (NLIMBS, points), f"accum_weight niels {name}")
+    _check(gather_idx, (rounds, lanes), "accum_weight gather_idx")
+    _check(gather_neg, (rounds, lanes), "accum_weight gather_neg")
+    _check(weights, (lanes,), "accum_weight weights")
+    dev = gather_idx.device
+    for t in (*niels, gather_neg, weights):
+        if t.device != dev:
+            raise ValueError("accum_weight: operands on different devices")
+    f = _fn("msm_kernels", "accum_weight_launch")
+    table = torch.stack(niels).permute(2, 0, 1).contiguous()
+    out = torch.empty((4, NLIMBS, lanes), dtype=torch.int32, device=dev)
+    _launch(f, "accum_weight", dev, lanes,
+            table.data_ptr(), gather_idx.data_ptr(), gather_neg.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), points, rounds)
     return out

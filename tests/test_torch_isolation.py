@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from cometbft_tpu_torch.ops import field as F  # noqa: E402
 from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
+from cometbft_tpu_torch.ops import msm as M  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -52,6 +53,8 @@ def fake_cuda_tensor(shape):
         is_contiguous=lambda: True, data_ptr=lambda: 0,
     )
     t.contiguous = lambda: t
+    t.to = lambda *args, **kwargs: t
+    t.reshape = lambda *new_shape: fake_cuda_tensor((t.shape.numel(),))  # reshape(-1) only
     return t
 
 
@@ -96,6 +99,13 @@ def test_cuda_requests_without_a_library_raise(no_nvcc):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.ladder_sub_mul8(fake_cuda_tensor((4, F.NLIMBS, 8)), fake_cuda_tensor((4, F.NLIMBS, 8)),
                           digits, digits, fake_cuda_tensor((9, 3, F.NLIMBS)))
+    niels = tuple(fake_cuda_tensor((F.NLIMBS, 129)) for _ in range(3))
+    table = fake_cuda_tensor((8, M.WK))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.accum_weight(niels, table, table, fake_cuda_tensor((M.WK,)))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        # the dispatching wrapper: no plain fallback either
+        M.accumulate_weighted(niels, table, table, fake_cuda_tensor((M.N_REGIONS, M.K_BUCKETS)))
     assert K.launches == before
 
 
@@ -107,6 +117,9 @@ def test_launchers_refuse_cpu_tensors():
         K.fe_sq(a)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.decompress(a, torch.zeros((1, 4), dtype=torch.int32))
+    idx = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.accum_weight((a, a, a), idx, idx, torch.zeros(4, dtype=torch.int32))
 
 
 def test_launchers_check_dtype_and_shape():
@@ -118,6 +131,15 @@ def test_launchers_check_dtype_and_shape():
         K.fe_mul(a, fake_cuda_tensor((F.NLIMBS, 9)))
     with pytest.raises(ValueError, match="shape"):
         K.decompress(a, fake_cuda_tensor((8,)))
+    niels = (a, a, fake_cuda_tensor((F.NLIMBS, 9)))
+    idx = fake_cuda_tensor((3, 16))
+    with pytest.raises(ValueError, match="shape"):
+        K.accum_weight(niels, idx, idx, fake_cuda_tensor((16,)))
+    with pytest.raises(ValueError, match="shape"):
+        K.accum_weight((a, a, a), idx, fake_cuda_tensor((3, 15)), fake_cuda_tensor((16,)))
+    with pytest.raises(ValueError, match="int32"):
+        K.accum_weight((a, a, a), idx, idx, types.SimpleNamespace(
+            **{**vars(fake_cuda_tensor((16,))), "dtype": torch.int64}))
 
 
 def test_build_dir_is_keyed_by_the_sources():
@@ -125,5 +147,6 @@ def test_build_dir_is_keyed_by_the_sources():
     assert d.parent == K.BUILD_ROOT and len(d.name) == 16
     assert K.build_dir() == d
     assert {p.name for p in K._sources()} >= {
-        "field25519.cuh", "field_kernels.cu", "curve_kernels.cu"}
+        "field25519.cuh", "edwards25519.cuh", "field_kernels.cu", "curve_kernels.cu",
+        "msm_kernels.cu"}
 

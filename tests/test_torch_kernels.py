@@ -98,6 +98,55 @@ def test_ladder_sub_mul8_matches_plain(dev):
     assert all(frozen_equal(g, w) for g, w in zip(got, want))
 
 
+def test_accum_weight_matches_plain(dev):
+    """On a real gather table: a 24-signature batch at bucket 64, its
+    layout from `crypto.rlc.prepare` with pinned z, at S = 8."""
+    from cometbft_tpu_torch.crypto import rlc
+    from cometbft_tpu_torch.ops import msm as M
+
+    rng = np.random.default_rng(4)
+    items = []
+    for _ in range(24):
+        seed = bytes(rng.bytes(32))
+        msg = bytes(rng.bytes(50))
+        items.append((ref.pubkey_from_seed(seed), msg, ref.sign(seed, msg)))
+    prep = rlc.prepare(items, np.zeros(24, bool), 64,
+                       rng.integers(0, 256, (24, 16), dtype=np.uint8))
+    assert prep["s_rounds"] <= 8
+    idx, neg = M.expand_stream(*(torch.from_numpy(prep[k]).to(dev)
+                                 for k in ("stream", "stream_neg", "counts")), 8)
+    encs = np.zeros((128, 32), np.uint8)
+    for i, (pub, _, sig) in enumerate(items):
+        encs[i] = np.frombuffer(sig[:32], np.uint8)
+        encs[64 + i] = np.frombuffer(pub, np.uint8)
+    _, pts = C.decompress(torch.from_numpy(encs).to(dev))
+    niels = tuple(torch.cat([c, i], dim=1) for c, i in zip(C.to_niels(pts)[:3],
+                                                         M._identity_niels(1, dev)))
+    weights = torch.from_numpy(prep["weights"]).to(dev)
+    before = K.launches["accum_weight"]
+    got = M.accumulate_weighted(niels, idx, neg, weights)
+    assert K.launches["accum_weight"] == before + 1
+    want = M.accumulate_weighted_plain(niels, idx, neg, weights)
+    assert all(frozen_equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, F.freeze(g)) for g in got)  # canonical output
+
+
+def test_rlc_route_on_the_card(dev, monkeypatch):
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
+
+    monkeypatch.setattr(E, "RLC_MIN", 1)
+    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b: True)
+    items = generate_signed_batch(40, seed=5, device=dev)
+    bv = E.Ed25519BatchVerifier(device=dev)
+    for i, (pub, msg, sig) in enumerate(items):
+        bv.add(E.Ed25519PubKey(pub), msg + (b"!" if i == 11 else b""), sig)
+    pending = bv.submit()
+    assert isinstance(pending, E.PendingRLC)
+    ok, bits = pending.result()
+    assert not ok and [i for i, b in enumerate(bits) if not b] == [11]
+
+
 def test_verifier_on_the_card(dev):
     from cometbft_tpu_torch.crypto.ed25519 import Ed25519BatchVerifier, Ed25519PubKey
     from cometbft_tpu_torch.crypto.testgen import generate_signed_batch

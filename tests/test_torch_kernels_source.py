@@ -48,3 +48,22 @@ def test_launch_signatures_match_the_bindings():
                 assert ("*" in p) == (t is K._P), (fn, p)
                 if t is K._I64:
                     assert p.startswith("int64_t"), (fn, p)
+
+
+def test_every_exported_launcher_is_bound():
+    """Each `.cu` file is a library with bindings, and each `extern "C"`
+    function it exports has one (and the other way round)."""
+    assert set(K.LIBRARIES) == {p.stem for p in CSRC.glob("*.cu")} == set(K._SIGNATURES)
+    for lib in K.LIBRARIES:
+        exported = set(re.findall(r'extern "C" int (\w+)\(', (CSRC / f"{lib}.cu").read_text()))
+        assert exported == set(K._SIGNATURES[lib]), lib
+
+
+def test_msm_kernel_constants_match_the_layout():
+    from cometbft_tpu_torch.ops import msm as M
+
+    src = (CSRC / "msm_kernels.cu").read_text()
+    assert int(re.search(r"constexpr int C_BITS = (\d+);", src).group(1)) == M.C_BITS
+    assert "NIELS_WORDS = 3 * NLIMBS12" in src
+    assert set(K.launches) == {"fe_mul", "fe_sq", "decompress", "ladder_sub_mul8",
+                               "accum_weight"}
