@@ -10,14 +10,17 @@ and never prints its last line):
    no CUDA device is an error;
 2. build every kernel from `cometbft_tpu_torch/csrc/` with nvcc (one
    process per source, all at once) and print the build seconds and the
-   `ptxas -v` register and spill lines;
+   `ptxas -v` register and spill lines; a spill in the ladder is an error;
 3. hold each kernel against its plain PyTorch version on the card at
-   B = 10,240 (the ladder on a 1,024-lane sub-batch; `accum_weight` at
-   WK = 19,968 bucket lanes on the gather table, weights and round count
-   of one real 10,000-signature commit laid out with z from `--seed`):
-   exact agreement after `freeze`, zero mismatches allowed, and outputs
-   inside the loose limb invariant; time kernel and plain version with
-   CUDA events, and the kernel alone in the profiler;
+   B = 10,240 (the ladder on a 1,027-lane sub-batch whose first lanes
+   carry digit extremes and identity and 8-torsion A and R; `accum_weight`
+   at WK = 19,968 bucket lanes on the gather table, weights and round
+   count of one real 10,000-signature commit laid out with z from
+   `--seed`): exact agreement after `freeze`, zero mismatches allowed,
+   outputs inside the loose limb invariant, and launches of 1, 3, 70 and
+   1,027 lanes equal to the same lanes of the full launch (ladder and
+   decompress); time kernel and plain version with CUDA events, and the
+   kernel alone in the profiler;
 4. the main path, two routes, each with every launch count set to 0
    just before it and read right after; a kernel of the route that was
    never launched is an error:
@@ -36,7 +39,8 @@ and never prints its last line):
    A stage split of one warm commit of each route (host pack, H2D,
    device, D2H) and a profile of its device kernels follow;
 5. one JSON line `{"kernels": [...]}` with each kernel's launches,
-   mismatches, time, plain time and bound;
+   mismatches, time, plain time and bound (multiplies at 100 and
+   squarings at 55 wide integer multiplies);
 6. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
@@ -62,7 +66,8 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 
 B = 10_240  # the 10k-validator commit's bucket
-LADDER_CHECK_LANES = 1_024
+LADDER_CHECK_LANES = 1_027  # not a whole number of 16-lane blocks
+RAGGED_LANES = (1, 3, 70, LADDER_CHECK_LANES)
 COMMIT_SIGS = 10_000
 PIPELINE_DEPTH = 16
 ORACLE_SAMPLE = 256
@@ -70,8 +75,10 @@ ORACLE_SAMPLE = 256
 # (CUDA C++ Programming Guide, "Arithmetic Instructions" throughput table)
 INT32_MUL_PER_SM_CLK = 64
 # wide (32x32->64) multiplies per field product in the kernels' radix
-# 2^25.5: the 10x10 schoolbook of csrc/field25519.cuh fe_mul
-MULS_PER_FIELD_PRODUCT = 100
+# 2^25.5 (csrc/field25519.cuh): the 10x10 schoolbook of fe_mul, and fe_sq,
+# which takes each cross term once
+MULS_PER_MUL = 100
+MULS_PER_SQ = 55
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 SOURCES = {
@@ -111,22 +118,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, kernel: str, reps: int) -> float:
+def kernel_device_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float:
     """Mean device time of one launch of `kernel` alone, from a profiler
-    trace of `reps` calls of fn() (the host's launch path excluded)."""
+    trace of `reps` calls of fn() (the host's launch path excluded). A
+    trace that lost events (one H100 run saw 151 of 200 `fe_sq` launches)
+    is taken again, up to `attempts` times; the count must match."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in e.name]
-    if len(ev) != reps:
-        raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, expected {reps}")
-    return sum(e.device_time_total for e in ev) / reps / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in e.name]
+        if len(ev) == reps:
+            return sum(e.device_time_total for e in ev) / reps / 1e3
+        log(f"profiler trace {attempt + 1} of {kernel}: {len(ev)} of {reps} launches seen")
+    raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, expected {reps}")
 
 
 def loose_limbs(rng, n: int):
@@ -212,40 +223,64 @@ def submit_commit(cols, device):
     return bv.submit()
 
 
+def ptxas_per_kernel(report: dict) -> dict:
+    """Registers and spill-store bytes of each kernel, from `ptxas -v`."""
+    out = {}
+    for txt in report.values():
+        name = None
+        for ln in txt.splitlines():
+            if "Compiling entry" in ln:
+                name = next((n for n in SOURCES if f"{n}_kernel" in ln), None)
+            elif name and "spill stores" in ln:
+                out.setdefault(name, {})["spill_bytes"] = int(ln.split("bytes spill stores")[0]
+                                                              .split(",")[-1])
+            elif name and "Used" in ln and "registers" in ln:
+                out.setdefault(name, {})["registers"] = int(ln.split("Used")[1].split()[0])
+    missing = [n for n in SOURCES if set(out.get(n, {})) != {"spill_bytes", "registers"}]
+    if missing:
+        raise AssertionError(f"ptxas report lacks registers or spills of {missing}")
+    return out
+
+
 def products_per_lane(s_rounds: int):
-    """Field products (mul or sq) per lane of each kernel, counted by running
-    its plain version on one CPU lane through counting routes;
-    `accum_weight` at `s_rounds` rounds."""
+    """Field products per lane of each kernel, (multiplies, squarings),
+    counted by running its plain version on one CPU lane through counting
+    routes; `accum_weight` at `s_rounds` rounds."""
     from cometbft_tpu_torch.ops import curve as C
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import msm as M
 
-    count = [0]
+    count = [0, 0]
 
     def mul(a, b):
         count[0] += 1
         return F.mul_plain(a, b)
 
     def sq(a):
-        count[0] += 1
+        count[1] += 1
         return F.sq_plain(a)
 
     ops = C.PointOps(mul, sq)
     y = torch.from_numpy(F.from_int(9, 1))
     ops.decompress_value(y, torch.zeros(1, dtype=torch.int32))
-    n_dec = count[0]
-    count[0] = 0
+    n_dec = tuple(count)
+    count[:] = [0, 0]
     pt = C.identity(1, "cpu")
     digits = torch.zeros((64, 1), dtype=torch.int32)
     ops.ladder_sub_mul8_value(digits, digits, pt, pt)
-    n_ladder = count[0]
-    count[0] = 0
+    n_ladder = tuple(count)
+    count[:] = [0, 0]
     niels = M._identity_niels(1, "cpu")
     idx = torch.zeros((s_rounds, 1), dtype=torch.int32)
     acc = M._accumulate(niels, idx, idx != 0, ops=ops)
     M._weight_step(ops, acc, torch.zeros(1, dtype=torch.int32))
-    return {"fe_mul": 1, "fe_sq": 1, "decompress": n_dec, "ladder_sub_mul8": n_ladder,
-            "accum_weight": count[0]}
+    return {"fe_mul": (1, 0), "fe_sq": (0, 1), "decompress": n_dec, "ladder_sub_mul8": n_ladder,
+            "accum_weight": tuple(count)}
+
+
+def wide_muls(products) -> int:
+    """32x32->64-bit multiplies of (multiplies, squarings) field products."""
+    return MULS_PER_MUL * products[0] + MULS_PER_SQ * products[1]
 
 
 def main(argv=None) -> int:
@@ -295,6 +330,9 @@ def main(argv=None) -> int:
     ]
     for ln in ptxas_lines:
         log("ptxas:", ln)
+    regs = ptxas_per_kernel(report)
+    if regs["ladder_sub_mul8"]["spill_bytes"]:
+        raise AssertionError(f"ladder_sub_mul8 spills: {regs['ladder_sub_mul8']}")
     results["build_s"] = build_s
     results["ptxas"] = ptxas_lines
 
@@ -310,7 +348,7 @@ def main(argv=None) -> int:
         ms = cuda_ms(kernel_fn, reps)
         device_ms = kernel_device_ms(kernel_fn, name, reps)
         plain_ms = cuda_ms(plain_fn, max(1, reps // 10))
-        ops_s = per_lane[name] * MULS_PER_FIELD_PRODUCT * batch / mul_rate
+        ops_s = wide_muls(per_lane[name]) * batch / mul_rate
         bytes_s = nbytes / HBM_BYTES_PER_S
         kern[name] = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -318,7 +356,9 @@ def main(argv=None) -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None, "batch": batch, "device_only_ms": device_ms,
-            "field_products_per_lane": per_lane[name],
+            "field_products_per_lane": {"mul": per_lane[name][0], "sq": per_lane[name][1]},
+            "threads_per_lane": K.LAUNCH_SHAPES[name][0],
+            "threads_per_block": K.LAUNCH_SHAPES[name][1], **regs[name],
         }
         log(f"check {name}: B={batch} mismatches={mism} max_abs_err={err} "
             f"kernel {ms:.4f} ms (device alone {device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -377,6 +417,10 @@ def main(argv=None) -> int:
     mism_v = int(((valid[0] != 0) != pv).sum())
     mx, ex = frozen_diff(F, x, px)
     mt, et = frozen_diff(F, t, pt)
+    for n in RAGGED_LANES:
+        part = K.decompress(y[:, :n].contiguous(), sign_row[:, :n].contiguous())
+        if not all(torch.equal(g, f[:, :n]) for g, f in zip(part, (valid, x, t))):
+            raise AssertionError(f"decompress: lanes differ between B={n} and B={B} launches")
     log(f"decompress: {int(pv.sum())}/{B} valid lanes, {len(edges)} edge encodings")
     record("decompress", mism_v + mx + mt, max(ex, et), lambda: K.decompress(y, sign_row),
            lambda: C.decompress_plain(y, sign), 20, B, (88 + 4) * B + (4 + 2 * 88) * B)
@@ -389,6 +433,17 @@ def main(argv=None) -> int:
     r_pt = tuple(c[:, idx_r].contiguous() for c in (px, y, F.const(1, dev).expand_as(y), pt))
     sd = torch.from_numpy(rng.integers(-8, 8, (64, B), dtype=np.int32)).to(dev)
     kd = torch.from_numpy(rng.integers(-8, 8, (64, B), dtype=np.int32)).to(dev)
+    # edge lanes beside the random ones: digits all -8, all 7 and all 0;
+    # identity and 8-torsion A, then identity and 8-torsion R
+    for lane, v in enumerate((-8, 7, 0)):
+        sd[:, lane] = v
+        kd[:, lane] = v
+    t8_limbs = [torch.from_numpy(F.from_int(c % P)).to(dev) for c in t8]
+    ident = [torch.from_numpy(F.from_int(c)).to(dev) for c in (0, 1, 1, 0)]
+    for lane, pt_, dst in ((3, ident, neg_a), (4, t8_limbs, neg_a), (5, ident, r_pt),
+                           (6, t8_limbs, r_pt)):
+        for c in range(4):
+            dst[c][:, lane] = pt_[c]
     a4, r4 = torch.stack(neg_a), torch.stack(r_pt)
     base = C.base_niels(dev)
     n = LADDER_CHECK_LANES
@@ -399,8 +454,14 @@ def main(argv=None) -> int:
                                    tuple(c[:, :n] for c in r_pt))
     mism, err = frozen_diff(F, sub, torch.stack(want))
     full = K.ladder_sub_mul8(a4, r4, sd, kd, base)
-    if not torch.equal(full[..., :n], sub):
-        raise AssertionError("ladder_sub_mul8: lanes differ between B=1024 and B=10240 launches")
+    for m in RAGGED_LANES:
+        part = sub if m == n else K.ladder_sub_mul8(
+            a4[..., :m].contiguous(), r4[..., :m].contiguous(), sd[:, :m].contiguous(),
+            kd[:, :m].contiguous(), base)
+        if not torch.equal(full[..., :m], part):
+            raise AssertionError(f"ladder_sub_mul8: lanes differ between B={m} and B={B} launches")
+    log(f"ladder: {n} lanes against the plain version (digit extremes, identity and torsion "
+        f"A and R in lanes 0-6), ragged launches {RAGGED_LANES} equal to the B={B} launch")
     record("ladder_sub_mul8", mism, err, lambda: K.ladder_sub_mul8(a4, r4, sd, kd, base),
            lambda: C.ladder_sub_mul8_plain(sd, kd, neg_a, r_pt), 10, B,
            (8 * 88 + 2 * 256 + 264) * B + base.numel() * 4)

@@ -6,9 +6,10 @@
 // back to the loose invariant.
 //
 // Bound on the H100: bytes. Each lane reads 176 B (88 for sq), writes 88 B
-// and does one field product, 100 wide integer multiplies plus the radix
-// conversions at both ends; at B = 10,240 the bytes take about 0.8 us and
-// the multiplies under 0.1 us, and a launch's fixed cost exceeds both.
+// and does one field product, 100 wide integer multiplies (55 for sq) plus
+// the radix conversions at both ends; at B = 10,240 the bytes take about
+// 0.8 us and the multiplies under 0.1 us, and a launch's fixed cost
+// exceeds both.
 // Design: reads and writes are limb-major (limb j of lane l at j * B + l),
 // so a warp touches 32 neighbouring words per limb; the product is
 // computed in radix 2^25.5 (field25519.cuh) and written back canonical.

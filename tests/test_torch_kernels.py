@@ -98,6 +98,71 @@ def test_ladder_sub_mul8_matches_plain(dev):
     assert all(frozen_equal(g, w) for g, w in zip(got, want))
 
 
+def torsion_limbs(dev):
+    """A nontrivial 8-torsion point as (X, Y, Z, T) limb columns."""
+    for y in range(2, 50):
+        aff = ref._decode_point(y.to_bytes(32, "little"), zip215=True)
+        if aff is None:
+            continue
+        t = ref._ext_scalar_mul(ref.L, ref._to_ext(aff))
+        if not ref._ext_is_identity(t):
+            return tuple(torch.from_numpy(F.from_int(v % F.P_INT)).to(dev) for v in t)
+    raise AssertionError("no torsion point found")
+
+
+def ladder_inputs(rng, n, dev):
+    """A, R, s and k digits for n lanes: random points and digits, with
+    the edges in the first lanes: digits all -8, all 7 and all 0, then
+    identity and 8-torsion A and R."""
+    digits = lambda: torch.from_numpy(rng.integers(-8, 8, (64, 2 * n), dtype=np.int32)).to(dev)
+    pts = C.fixed_base(digits())
+    a = [c[:, :n].clone() for c in pts]
+    r = [c[:, n:].clone() for c in pts]
+    sd, kd = digits()[:, :n].contiguous(), digits()[:, :n].contiguous()
+    for lane, v in enumerate((-8, 7, 0)[:n]):
+        sd[:, lane] = v
+        kd[:, lane] = v
+    edges = [(C.identity(1, dev), a), (torsion_limbs(dev), a), (C.identity(1, dev), r),
+             (torsion_limbs(dev), r)]
+    for lane, (pt, dst) in enumerate(edges, start=3):
+        if lane < n:
+            for c in range(4):
+                dst[c][:, lane] = pt[c].reshape(-1)
+    return tuple(a), tuple(r), sd, kd
+
+
+@pytest.mark.parametrize("n", [1, 3, 70, 1027])
+def test_ladder_sub_mul8_ragged_batches(dev, n):
+    """Partial thread groups and partial blocks: every lane matches the
+    plain version, and the same lanes of a larger launch."""
+    rng = np.random.default_rng(n)
+    a, r, sd, kd = ladder_inputs(rng, 2048, dev)
+    head = lambda t: t[..., :n].contiguous()
+    before = K.launches["ladder_sub_mul8"]
+    got = C.ladder_sub_mul8(head(sd), head(kd), tuple(map(head, a)), tuple(map(head, r)))
+    assert K.launches["ladder_sub_mul8"] == before + 1
+    want = C.ladder_sub_mul8_plain(head(sd), head(kd), tuple(map(head, a)), tuple(map(head, r)))
+    assert all(frozen_equal(g, w) for g, w in zip(got, want))
+    full = C.ladder_sub_mul8(sd, kd, a, r)
+    assert all(torch.equal(g, f[:, :n]) for g, f in zip(got, full))
+
+
+@pytest.mark.parametrize("n", [1, 3, 70, 1027])
+def test_decompress_ragged_batches(dev, n):
+    rng = np.random.default_rng(10 + n)
+    encs = rng.integers(0, 256, (2048, 32), dtype=np.uint8)
+    for i, y in enumerate([1, 1 + F.P_INT, 0, F.P_INT, 2]):
+        encs[i] = np.frombuffer(y.to_bytes(32, "little"), np.uint8)
+    sign, y = C._split_encoding(torch.from_numpy(encs).to(dev))
+    sign_row = sign[None, :].contiguous()
+    valid, x, t = K.decompress(y[:, :n].contiguous(), sign_row[:, :n].contiguous())
+    pv, px, pt = C.decompress_plain(y[:, :n], sign[:n])
+    assert torch.equal(valid[0] != 0, pv)
+    assert frozen_equal(x, px) and frozen_equal(t, pt)
+    fv, fx, ft = K.decompress(y, sign_row)
+    assert torch.equal(valid, fv[:, :n]) and torch.equal(x, fx[:, :n]) and torch.equal(t, ft[:, :n])
+
+
 def test_accum_weight_matches_plain(dev):
     """On a real gather table: a 24-signature batch at bucket 64, its
     layout from `crypto.rlc.prepare` with pinned z, at S = 8."""

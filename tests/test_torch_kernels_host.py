@@ -1,0 +1,277 @@
+"""The CUDA kernels' code, compiled for the host and run on the CPU.
+
+This machine has no nvcc and no card, so `csrc/curve_kernels.cu` and
+`csrc/field_kernels.cu` are compiled here with g++ against a small header
+that stands in for the CUDA features they use: each CUDA thread of a block
+is a user-space context (`ucontext`), `__syncthreads` a hand-over to the
+next one round-robin, `__shfl_sync` an exchange through an array between
+two such barriers. That runs the four-threads-per-lane
+ladder (its shuffles, layouts, table columns and signed-digit handling),
+`decompress` and the field products on small batches, which must agree
+with the plain PyTorch versions after `freeze`. Partial thread groups and
+partial blocks are in every ladder case. Skips without g++.
+"""
+
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cometbft_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
+from cometbft_tpu_torch.ops import curve as C  # noqa: E402
+from cometbft_tpu_torch.ops import field as F  # noqa: E402
+from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
+
+SHIM = r"""
+#pragma once
+#include <ucontext.h>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <functional>
+#include <string>
+#include <vector>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __noinline__
+#define __constant__
+#define __restrict__
+#define __launch_bounds__(x)
+// The threads of a block are user-space contexts run round-robin: each
+// runs until it reaches a barrier, then hands over to the next live one,
+// so a barrier holds once the turn comes back.
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+inline Dim3 threadIdx, blockIdx, blockDim;
+inline std::vector<ucontext_t> g_ctx;
+inline std::vector<std::vector<char>> g_stack;
+inline std::vector<char> g_done;
+inline ucontext_t g_sched;
+inline int g_cur = 0;
+inline const std::function<void()>* g_body = nullptr;
+inline std::vector<uint32_t> g_slots, g_smem;
+inline int next_live(int from) {
+  const int n = (int)g_ctx.size();
+  for (int i = 1; i <= n; ++i) {
+    const int t = (from + i) % n;
+    if (!g_done[t]) return t;
+  }
+  return -1;
+}
+inline void __syncthreads() {
+  const int me = g_cur, nxt = next_live(me);
+  if (nxt == me) return;
+  g_cur = nxt;
+  threadIdx.x = nxt;
+  swapcontext(&g_ctx[me], &g_ctx[nxt]);
+  threadIdx.x = g_cur;
+}
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width) {
+  g_slots[threadIdx.x] = v;
+  __syncthreads();
+  const uint32_t r = g_slots[(threadIdx.x & ~(unsigned)(width - 1)) + (src & (width - 1))];
+  __syncthreads();
+  return r;
+}
+inline void emu_entry() {
+  (*g_body)();
+  g_done[g_cur] = 1;
+  const int nxt = next_live(g_cur);
+  if (nxt < 0) setcontext(&g_sched);
+  g_cur = nxt;
+  threadIdx.x = nxt;
+  setcontext(&g_ctx[nxt]);
+}
+inline void emu_launch(unsigned blocks, unsigned threads, size_t smem_bytes,
+                       const std::function<void()>& body) {
+  blockDim.x = threads;
+  g_body = &body;
+  g_slots.assign(threads, 0);
+  g_ctx.assign(threads, ucontext_t{});
+  g_stack.assign(threads, std::vector<char>(1 << 18));
+  for (unsigned b = 0; b < blocks; ++b) {
+    g_smem.assign(smem_bytes / 4 + 1, 0xdeadbeefu);
+    g_done.assign(threads, 0);
+    blockIdx.x = b;
+    for (unsigned t = 0; t < threads; ++t) {
+      getcontext(&g_ctx[t]);
+      g_ctx[t].uc_stack.ss_sp = g_stack[t].data();
+      g_ctx[t].uc_stack.ss_size = g_stack[t].size();
+      g_ctx[t].uc_link = nullptr;
+      makecontext(&g_ctx[t], emu_entry, 0);
+    }
+    g_cur = 0;
+    threadIdx.x = 0;
+    swapcontext(&g_sched, &g_ctx[0]);
+  }
+}
+static std::vector<int32_t> rd(const std::string& p, size_t n) {
+  std::vector<int32_t> v(n);
+  FILE* f = fopen(p.c_str(), "rb");
+  if (!f || fread(v.data(), 4, n, f) != n) abort();
+  fclose(f);
+  return v;
+}
+static void wr(const std::string& p, const std::vector<int32_t>& v) {
+  FILE* f = fopen(p.c_str(), "wb");
+  fwrite(v.data(), 4, v.size(), f);
+  fclose(f);
+}
+"""
+
+MAINS = {
+    "curve_kernels": r"""
+int main(int argc, char** argv) {
+  const std::string kind = argv[1], d = argv[3];
+  const long B = atol(argv[2]);
+  if (kind == "ladder") {
+    auto a4 = rd(d + "/a4", 4 * 22 * B), r4 = rd(d + "/r4", 4 * 22 * B);
+    auto s = rd(d + "/s", 64 * B), k = rd(d + "/k", 64 * B), base = rd(d + "/base", 9 * 3 * 22);
+    std::vector<int32_t> out(3 * 22 * B, -1);
+    const size_t smem = sizeof(uint32_t) * (BASE_WORDS + (size_t)TBL_WORDS * LADDER_THREADS);
+    emu_launch(blocks_for(B * LANE_THREADS, LADDER_THREADS), LADDER_THREADS, smem, [&] {
+      ladder_sub_mul8_kernel(a4.data(), r4.data(), s.data(), k.data(), base.data(), out.data(), B);
+    });
+    wr(d + "/out", out);
+  } else {
+    auto y = rd(d + "/y", 22 * B), sign = rd(d + "/sign", B);
+    std::vector<int32_t> valid(B, -1), x(22 * B, -1), t(22 * B, -1);
+    emu_launch(blocks_for(B, DECOMPRESS_THREADS), DECOMPRESS_THREADS, 0, [&] {
+      decompress_kernel(y.data(), sign.data(), valid.data(), x.data(), t.data(), B);
+    });
+    wr(d + "/valid", valid);
+    wr(d + "/x", x);
+    wr(d + "/t", t);
+  }
+  return 0;
+}
+""",
+    "field_kernels": r"""
+int main(int argc, char** argv) {
+  const long B = atol(argv[2]);
+  const std::string d = argv[3];
+  auto a = rd(d + "/a", 22 * B), b = rd(d + "/b", 22 * B);
+  std::vector<int32_t> mul(22 * B), sq(22 * B);
+  emu_launch(blocks_for(B), THREADS, 0, [&] { fe_mul_kernel(a.data(), b.data(), mul.data(), B); });
+  emu_launch(blocks_for(B), THREADS, 0, [&] { fe_sq_kernel(a.data(), sq.data(), B); });
+  wr(d + "/mul", mul);
+  wr(d + "/sq", sq);
+  return 0;
+}
+""",
+}
+
+
+@pytest.fixture(scope="module")
+def host_build(tmp_path_factory):
+    """Compile each kernel source for the host; {library: executable}."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel sources for the host")
+    out = tmp_path_factory.mktemp("kernels_host")
+    (out / "cuda_runtime.h").write_text(SHIM)
+    exes = {}
+    for lib, main in MAINS.items():
+        src = (K.CSRC / f"{lib}.cu").read_text()
+        src = src[: src.index('extern "C"')]  # the launchers use <<<>>>
+        src = src.replace("extern __shared__ uint32_t smem[];", "uint32_t* smem = g_smem.data();")
+        cpp = out / f"{lib}.cpp"
+        cpp.write_text(src + main)
+        exe = out / lib
+        subprocess.run([gxx, "-std=c++20", "-O1", "-w", "-I", str(out),
+                        "-I", str(K.CSRC), "-o", str(exe), str(cpp)], check=True,
+                       capture_output=True, timeout=600)
+        exes[lib] = exe
+    return exes
+
+
+def run(exe, kind, batch, arrays, outputs, tmp_path):
+    for name, arr in arrays.items():
+        np.ascontiguousarray(arr, dtype=np.int32).tofile(tmp_path / name)
+    subprocess.run([str(exe), kind, str(batch), str(tmp_path)], check=True, timeout=600)
+    return [torch.from_numpy(np.fromfile(tmp_path / name, np.int32).reshape(shape))
+            for name, shape in outputs]
+
+
+def frozen_equal(got, want):
+    return torch.equal(F.freeze(got), F.freeze(want))
+
+
+def torsion_point():
+    for y in range(2, 50):
+        aff = ref._decode_point(y.to_bytes(32, "little"), zip215=True)
+        if aff is None:
+            continue
+        t = ref._ext_scalar_mul(ref.L, ref._to_ext(aff))
+        if not ref._ext_is_identity(t):
+            return t
+    raise AssertionError("no torsion point found")
+
+
+def test_field_products_match_plain(host_build, tmp_path):
+    rng = np.random.default_rng(0)
+    n = 40
+    a = np.empty((2, F.NLIMBS, n), np.int32)
+    a[:, 0] = rng.integers(0, 13824, (2, n))
+    a[:, 1:] = rng.integers(0, 4300, (2, F.NLIMBS - 1, n))
+    a[:, :, 0] = 0
+    a[:, 0, 1], a[:, 1:, 1] = 13823, 4299  # the loose invariant's top
+    a[:, :, 2] = F.P_LIMBS[None]
+    mul, sq = run(host_build["field_kernels"], "field", n, {"a": a[0], "b": a[1]},
+                  [("mul", (F.NLIMBS, n)), ("sq", (F.NLIMBS, n))], tmp_path)
+    ta, tb = torch.from_numpy(a[0]), torch.from_numpy(a[1])
+    assert frozen_equal(mul, F.mul_plain(ta, tb)) and torch.equal(mul, F.freeze(mul))
+    assert frozen_equal(sq, F.sq_plain(ta)) and torch.equal(sq, F.freeze(sq))
+
+
+def test_decompress_matches_plain(host_build, tmp_path):
+    rng = np.random.default_rng(1)
+    n = 45  # one full warp-block and a partial one
+    encs = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    for i, y in enumerate([1, 1 + F.P_INT, 0, F.P_INT, F.P_INT + 18, 2, 3]):
+        encs[i] = np.frombuffer(y.to_bytes(32, "little"), np.uint8)
+    encs[7] = encs[0]
+    encs[7, 31] |= 0x80
+    t8 = torsion_point()
+    for i in range(8):
+        encs[8 + i] = np.frombuffer(
+            ref._encode_point(*ref._ext_to_affine(ref._ext_scalar_mul(i, t8))), np.uint8)
+    sign, y = C._split_encoding(torch.from_numpy(encs))
+    valid, x, t = run(host_build["curve_kernels"], "decompress", n,
+                      {"y": y.numpy(), "sign": sign.numpy()},
+                      [("valid", (n,)), ("x", (F.NLIMBS, n)), ("t", (F.NLIMBS, n))], tmp_path)
+    pv, px, pt = C.decompress_plain(y, sign)
+    assert torch.equal(valid != 0, pv)
+    assert frozen_equal(x, px) and frozen_equal(t, pt)
+    assert torch.equal(x, F.freeze(x)) and torch.equal(t, F.freeze(t))
+
+
+@pytest.mark.parametrize("n", [1, 3, 21])
+def test_ladder_matches_plain(host_build, tmp_path, n):
+    """Random points and digits, and in the first lanes the digit extremes
+    (all -8, all 7, all 0) and identity and 8-torsion A and R."""
+    rng = np.random.default_rng(2 + n)
+    digits = lambda: torch.from_numpy(rng.integers(-8, 8, (64, n), dtype=np.int32))
+    a = [c.clone() for c in C.fixed_base(digits())]
+    r = [c.clone() for c in C.fixed_base(digits())]
+    sd, kd = digits(), digits()
+    for lane, v in enumerate((-8, 7, 0)[:n]):
+        sd[:, lane] = v
+        kd[:, lane] = v
+    t8 = [torch.from_numpy(F.from_int(c % F.P_INT)) for c in torsion_point()]
+    ident = [torch.from_numpy(F.from_int(c)) for c in (0, 1, 1, 0)]
+    for lane, pt, dst in ((3, ident, a), (4, t8, a), (5, ident, r), (6, t8, r)):
+        if lane < n:
+            for c in range(4):
+                dst[c][:, lane] = pt[c]
+    out = run(host_build["curve_kernels"], "ladder", n,
+              {"a4": torch.stack(a).numpy(), "r4": torch.stack(r).numpy(), "s": sd.numpy(),
+               "k": kd.numpy(), "base": C.BASE_NIELS.numpy()},
+              [("out", (3, F.NLIMBS, n))], tmp_path)[0]
+    want = C.ladder_sub_mul8_plain(sd, kd, tuple(a), tuple(r))
+    assert all(frozen_equal(g, w) for g, w in zip(out, want))
+    assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))

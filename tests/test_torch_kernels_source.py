@@ -67,3 +67,44 @@ def test_msm_kernel_constants_match_the_layout():
     assert "NIELS_WORDS = 3 * NLIMBS12" in src
     assert set(K.launches) == {"fe_mul", "fe_sq", "decompress", "ladder_sub_mul8",
                                "accum_weight"}
+
+
+def constant(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_launch_shapes_match_the_sources():
+    """Threads per lane and per block of each kernel, as the launchers in
+    csrc/ use them, are what `LAUNCH_SHAPES` (and so chip_smoke.py) says;
+    a ladder block is whole warps of whole four-thread groups, so a group
+    never straddles two warps and every shuffle has all 32 threads."""
+    curve = (CSRC / "curve_kernels.cu").read_text()
+    lane_threads = constant((CSRC / "edwards25519.cuh").read_text(), "LANE_THREADS")
+    ladder = constant(curve, "LADDER_THREADS")
+    assert K.LAUNCH_SHAPES["ladder_sub_mul8"] == (lane_threads, ladder) == (4, 64)
+    assert ladder % 32 == 0 and 32 % lane_threads == 0
+    assert "__launch_bounds__(LADDER_THREADS)" in curve
+    assert "blocks_for(batch * LANE_THREADS, LADDER_THREADS), LADDER_THREADS, smem" in curve
+    assert K.LAUNCH_SHAPES["decompress"] == (1, constant(curve, "DECOMPRESS_THREADS"))
+    assert "__launch_bounds__(DECOMPRESS_THREADS)" in curve
+    assert "blocks_for(batch, DECOMPRESS_THREADS), DECOMPRESS_THREADS, 0" in curve
+    field = (CSRC / "field_kernels.cu").read_text()
+    assert K.LAUNCH_SHAPES["fe_mul"] == K.LAUNCH_SHAPES["fe_sq"] == (1, constant(field, "THREADS"))
+    msm = (CSRC / "msm_kernels.cu").read_text()
+    assert K.LAUNCH_SHAPES["accum_weight"] == (1, constant(msm, "THREADS"))
+    assert set(K.LAUNCH_SHAPES) == set(K.launches)
+
+
+def test_ladder_shared_memory_needs_no_opt_in():
+    """The ladder's dynamic shared memory (the converted base table and one
+    table column per thread) stays under the 48 KB a launch may take
+    without cudaFuncSetAttribute, which the launcher does not call."""
+    curve = (CSRC / "curve_kernels.cu").read_text()
+    nl = 10
+    base_words = 9 * 4 * nl
+    tbl_words = 9 * nl
+    assert "constexpr int BASE_WORDS = 9 * 4 * NL;" in curve
+    assert "constexpr int TBL_WORDS = 9 * NL;" in curve
+    assert "sizeof(uint32_t) * (BASE_WORDS + (size_t)TBL_WORDS * LADDER_THREADS)" in curve
+    assert 4 * (base_words + tbl_words * constant(curve, "LADDER_THREADS")) <= 48 * 1024
+    assert "cudaFuncSetAttribute" not in curve
