@@ -357,8 +357,7 @@ def main(argv=None) -> int:
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None, "batch": batch, "device_only_ms": device_ms,
             "field_products_per_lane": {"mul": per_lane[name][0], "sq": per_lane[name][1]},
-            "threads_per_lane": K.LAUNCH_SHAPES[name][0],
-            "threads_per_block": K.LAUNCH_SHAPES[name][1], **regs[name],
+            **regs[name],
         }
         log(f"check {name}: B={batch} mismatches={mism} max_abs_err={err} "
             f"kernel {ms:.4f} ms (device alone {device_ms:.4f} ms), plain {plain_ms:.4f} ms, "

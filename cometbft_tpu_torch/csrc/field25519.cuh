@@ -182,8 +182,7 @@ __device__ __forceinline__ fe fe_lin(const fe& f, uint32_t a, const fe& g, uint3
 // by the carry flag (mad.lo.cc, madc.hi), which ptxas turns into one
 // accumulating IMAD.WIDE. Written as a 64-bit `h += (uint64_t)a * b`,
 // ptxas may instead emit the multiply and a separate 64-bit add: such a
-// product ran 1.4x slower on the H100 (tools/int_mul_rate.py times
-// both). The host branch is for compiling the kernels' code on a CPU
+// product ran 1.4x slower on the H100 (PERF.md). The host branch is for compiling the kernels' code on a CPU
 // (tests/test_torch_kernels_host.py).
 __device__ __forceinline__ void mac(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b) {
 #ifdef __CUDA_ARCH__

@@ -42,11 +42,6 @@ NVCC_FLAGS = [
 ]
 LIBRARIES = ("field_kernels", "curve_kernels", "msm_kernels")
 
-# Threads per lane and threads per block of each kernel, as its launcher
-# in csrc/ sets them (checked by tests/test_torch_kernels_source.py).
-LAUNCH_SHAPES = {"fe_mul": (1, 256), "fe_sq": (1, 256), "decompress": (1, 32),
-                 "ladder_sub_mul8": (4, 64), "accum_weight": (1, 128)}
-
 # One plain integer per kernel, incremented where the kernel is launched.
 launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0,
             "accum_weight": 0}

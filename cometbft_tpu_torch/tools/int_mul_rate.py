@@ -15,9 +15,7 @@ hide latency) and prints each rate per clock per SM at the SM clock that
 limit. It then times `fe_mul` and `fe_sq` of `csrc/field25519.cuh`
 the same way (each thread four chains of dependent products, the card
 full), which gives the rate a kernel made of nothing but field products
-could reach, and `fe_mul_wide`, the same product with its columns
-accumulated by `mad.wide` into 64-bit registers (the kernels' form
-before `mac()`). The CUDA source is built with nvcc into `build/` at first use.
+could reach. The CUDA source is built with nvcc into `build/` at first use.
 Needs one CUDA GPU.
 """
 
@@ -27,7 +25,6 @@ import ctypes
 import json
 import subprocess
 import sys
-from pathlib import Path
 
 SOURCE = r"""
 #include <cuda_runtime.h>
@@ -73,32 +70,8 @@ __global__ void mad_wide(const uint32_t* in, uint32_t* out, int iters) {
 
 using namespace f25519;
 
-// fe_mul with its columns as 64-bit accumulators (one mad.wide a term),
-// the form the kernels used before the carry-chained pairs of mac().
-__device__ __forceinline__ fe fe_mul_wide(const fe& f, const fe& g) {
-  uint32_t g19[NL], f2[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    g19[i] = 19u * g.v[i];
-    f2[i] = (i & 1) ? 2u * f.v[i] : f.v[i];
-  }
-  uint64_t h[NL];
-#pragma unroll
-  for (int k = 0; k < NL; ++k) h[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      const uint32_t fi = (i & j & 1) ? f2[i] : f.v[i];
-      const uint32_t gj = (i + j >= NL) ? g19[j] : g.v[j];
-      h[(i + j) % NL] += (uint64_t)fi * gj;
-    }
-  }
-  return carry64(h);
-}
-
 // Four independent chains of field products per thread, FIELD_UNROLL
-// products each per loop trip. OP: 0 fe_mul, 1 fe_sq, 2 fe_mul_wide.
+// products each per loop trip. OP: 0 fe_mul, 1 fe_sq.
 #define FIELD_UNROLL 4
 
 template <int OP>
@@ -112,7 +85,7 @@ __global__ void field_chain(const uint32_t* in, uint32_t* out, int iters) {
     for (int u = 0; u < FIELD_UNROLL; ++u) {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        x[c] = OP == 1 ? fe_sq(x[c]) : (OP == 2 ? fe_mul_wide(x[c], y) : fe_mul(x[c], y));
+        x[c] = OP == 1 ? fe_sq(x[c]) : fe_mul(x[c], y);
     }
   }
   uint32_t s = 0;
@@ -132,10 +105,8 @@ extern "C" int launch(int which, const void* in, void* out, int blocks, int thre
     mad_wide<<<blocks, threads, 0, st>>>(i, o, iters);
   else if (which == 2)
     field_chain<0><<<blocks, threads, 0, st>>>(i, o, iters);
-  else if (which == 3)
-    field_chain<1><<<blocks, threads, 0, st>>>(i, o, iters);
   else
-    field_chain<2><<<blocks, threads, 0, st>>>(i, o, iters);
+    field_chain<1><<<blocks, threads, 0, st>>>(i, o, iters);
   return (int)cudaGetLastError();
 }
 """
@@ -143,7 +114,7 @@ extern "C" int launch(int which, const void* in, void* out, int blocks, int thre
 PER_TRIP = 16 * 8
 FIELD_PER_TRIP = 4 * 4
 # wide multiplies a product (csrc/field25519.cuh), for the multiply rate
-WIDE_PER = {"fe_mul": 100, "fe_sq": 55, "fe_mul_wide": 100}
+WIDE_PER = {"fe_mul": 100, "fe_sq": 55}
 
 
 def smi(query: str) -> str:
@@ -179,8 +150,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     result = {"card": smi("name,power.limit"), "sms": sms}
     kinds = (("mad.lo.u32", 0, iters, PER_TRIP), ("mad.wide.u32", 1, iters, PER_TRIP),
-             ("fe_mul", 2, iters // 64, FIELD_PER_TRIP), ("fe_sq", 3, iters // 64, FIELD_PER_TRIP),
-             ("fe_mul_wide", 4, iters // 64, FIELD_PER_TRIP))
+             ("fe_mul", 2, iters // 64, FIELD_PER_TRIP), ("fe_sq", 3, iters // 64, FIELD_PER_TRIP))
     for name, which, n_iter, per_trip in kinds:
         def run():
             rc = lib.launch(which, inp.data_ptr(), out.data_ptr(), blocks, threads, n_iter, stream)

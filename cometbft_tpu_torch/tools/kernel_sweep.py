@@ -2,16 +2,14 @@
 """Time the ladder and decompress kernels over batch sizes, and count the
 instructions of the ladder's loops.
 
-    python3 -m cometbft_tpu_torch.tools.kernel_sweep [--sizes 2560,5120,10240,20480,40960]
-        [--csrc DIR] [--sass]
+    python3 -m cometbft_tpu_torch.tools.kernel_sweep [--sizes 2560,5120,10240,20480,40960] [--sass]
 
 For each batch size B: `ladder_sub_mul8` and `decompress` on random
 points and digits (seeded), mean milliseconds per launch by CUDA events
 over back-to-back launches. Time against B says where a kernel stands:
 proportional once the card is full (throughput), flat while it is not
-(latency). `--csrc DIR` builds the kernels from another copy of `csrc/`
-(an experiment, or a parent checkout's) into its own build directory.
-`--sass` disassembles the built ladder (`cuobjdump -sass`) and prints the
+(latency). To time a parent commit, run this script in a `git archive`
+of it. `--sass` disassembles the built ladder (`cuobjdump -sass`) and prints the
 opcode counts of each loop body (a backward branch and its target) and
 of the whole kernel. The last line is one JSON object with every number,
 the card's name and power limit. Needs one CUDA GPU and nvcc.
@@ -58,7 +56,6 @@ def loop_histograms(sass: str, kernel: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="2560,5120,10240,20480,40960")
-    ap.add_argument("--csrc", default=None, help="build from this copy of csrc/")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -72,11 +69,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_sweep: needs a CUDA GPU", file=sys.stderr)
         return 1
-    if args.csrc:
-        K.CSRC = Path(args.csrc).resolve()
-        K.BUILD_ROOT = K.BUILD_ROOT.parent / "kernel_sweep" / K.CSRC.parent.name
     K.build()
-    result = {"card": smi("name,power.limit"), "csrc": str(K.CSRC), "ptxas": [
+    result = {"card": smi("name,power.limit"), "ptxas": [
         ln.strip() for ln in K.ptxas_report()["curve_kernels"].splitlines()
         if "registers" in ln or "spill" in ln]}
     sizes = [int(x) for x in args.sizes.split(",")]

@@ -9,11 +9,16 @@ reduced element, and then run Python models of `fe_mul`, `fe_sq`,
 `fe_add`, `fe_sub`, `fe_neg`, `fe_lin` and the carries at the bounds'
 extremes: no 32-bit operand or limb and no 64-bit column may overflow,
 every result must land inside the reduced bound, and every value must be
-right mod p.
+right mod p. The last test compiles the header's own functions for the
+host (g++) and holds them limb for limb against the models at the same
+extremes, so the models' overflow checks hold for the code itself: an
+operand or column that wrapped would change the limbs.
 """
 
 import itertools
 import re
+import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -218,13 +223,25 @@ def test_operations_at_the_extremes(op):
         assert value(h) == want % P
 
 
-def test_lazy_products_at_the_extremes():
-    """Products of lazy inputs (the sum or difference plus 2p of two
-    reduced elements, as grp_add and niels_part feed them) stay exact."""
+# fe_lin's coefficients (a, b, k) where the kernels make lazy operands:
+# Y - X + 2p and Y + X (grp_add, niels_part), 2Z (niels_part), 2p - X.
+LIN_COEFFS = [(1, -1, 1), (1, 1, 0), (2, 0, 0), (-1, 0, 1)]
+
+
+def lazy_elements():
+    """Lazy operands: the sum or difference plus 2p of two reduced
+    elements at the extremes, and the lazy bound itself."""
     xs = extremes()
     lazies = [lin(f, 1, g, -1, 1) for f, g in itertools.product(xs[:6], xs[:6])]
     lazies += [lin(f, 1, g, 1, 0) for f, g in itertools.product(xs[:4], xs[:4])]
     lazies.append(list(LAZY))
+    return lazies
+
+
+def test_lazy_products_at_the_extremes():
+    """Products of lazy inputs (the sum or difference plus 2p of two
+    reduced elements, as grp_add and niels_part feed them) stay exact."""
+    lazies = lazy_elements()
     for f in lazies:
         assert all(x <= b for x, b in zip(f, LAZY))
         for g in lazies[:8] + [list(LAZY)]:
@@ -245,21 +262,31 @@ def carry_once(h):
     return out
 
 
+def doubling_lines():
+    """grp_dbl's stage-2 lines before their carry_once round,
+    c_own * s + c_yy * Y^2 - X^2 + 4p for each thread's coefficients
+    (threads 0..3: e, g, f, h) at the extremes, each with its value."""
+    xs = extremes()
+    coeffs = [(1, -1), (0, 1), (-2, 1), (0, -1)]
+    out = []
+    for (c_own, c_yy), s, yy, xx in itertools.product(coeffs, xs[:5], xs[:5], xs[:5]):
+        m = [c_own * a + c_yy * b - c + 2 * t for a, b, c, t in zip(s, yy, xx, TWO_P)]
+        out.append((m, (c_own * value(s) + c_yy * value(yy) - value(xx)) % P))
+    return out
+
+
 def test_doubling_combination_at_the_extremes():
     """grp_dbl's stage-2 line, c_own * s + c_yy * Y^2 - X^2 + 4p, for each
     thread's coefficients, then one carry_once round: non-negative, below
     2^29, and lazy after the round (an operand fe_mul accepts); the
     product of two such lines is reduced and right."""
-    xs = extremes()
-    coeffs = [(1, -1), (0, 1), (-2, 1), (0, -1)]  # threads 0..3: e, g, f, h
     worst = [0] * NL
     lines = []
-    for (c_own, c_yy), s, yy, xx in itertools.product(coeffs, xs[:5], xs[:5], xs[:5]):
-        m = [c_own * a + c_yy * b - c + 2 * t for a, b, c, t in zip(s, yy, xx, TWO_P)]
+    for m, want in doubling_lines():
         assert min(m) >= 0 and max(m) < 1 << 29
         h = carry_once(m)
         assert all(x <= b for x, b in zip(h, LAZY)), h
-        assert value(h) == (c_own * value(s) + c_yy * value(yy) - value(xx)) % P
+        assert value(h) == want
         worst = [max(a, b) for a, b in zip(worst, h)]
         lines.append(h)
     for f, g in [(worst, worst)] + list(zip(lines[::7], lines[3::7])):
@@ -272,3 +299,112 @@ def test_doubling_combination_at_the_extremes():
     for i in range(NL):
         once[(i + 1) % NL] += (19 if i == NL - 1 else 1) * (top[i] >> W[i])
     assert all(x <= b for x, b in zip(once, LAZY))
+
+
+SHIM = """
+#pragma once
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __noinline__
+#define __constant__
+"""
+
+HOST_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <vector>
+
+#include "field25519.cuh"
+
+using namespace f25519;
+
+static std::vector<uint32_t> rd(const std::string& p, size_t n) {
+  std::vector<uint32_t> v(n);
+  FILE* f = fopen(p.c_str(), "rb");
+  if (!f || fread(v.data(), 4, n, f) != n) abort();
+  fclose(f);
+  return v;
+}
+
+// argv: operation, count, and a directory holding f and g (count x 10
+// limbs) and c (count x 3 fe_lin coefficients); writes out (count x 10).
+int main(int argc, char** argv) {
+  const std::string op = argv[1], d = argv[3];
+  const size_t n = (size_t)atol(argv[2]);
+  const auto f = rd(d + "/f", NL * n), g = rd(d + "/g", NL * n), c = rd(d + "/c", 3 * n);
+  std::vector<uint32_t> out(NL * n);
+  for (size_t e = 0; e < n; ++e) {
+    fe x, y, h;
+    for (int i = 0; i < NL; ++i) {
+      x.v[i] = f[e * NL + i];
+      y.v[i] = g[e * NL + i];
+    }
+    if (op == "mul") h = fe_mul(x, y);
+    else if (op == "sq") h = fe_sq(x);
+    else if (op == "add") h = fe_add(x, y);
+    else if (op == "sub") h = fe_sub(x, y);
+    else if (op == "neg") h = fe_neg(x);
+    else if (op == "lin") h = fe_lin(x, c[3 * e], y, c[3 * e + 1], c[3 * e + 2]);
+    else if (op == "once") h = carry_once(x);
+    else abort();
+    for (int i = 0; i < NL; ++i) out[e * NL + i] = h.v[i];
+  }
+  FILE* o = fopen((d + "/out").c_str(), "wb");
+  fwrite(out.data(), 4, out.size(), o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def header_exe(tmp_path_factory):
+    """field25519.cuh compiled for the host behind a small driver."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the field header for the host")
+    out = tmp_path_factory.mktemp("field_host")
+    (out / "cuda_runtime.h").write_text(SHIM)
+    (out / "main.cpp").write_text(HOST_MAIN)
+    exe = out / "field_host"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-I", str(out), "-I", str(SRC.parent),
+                    "-o", str(exe), str(out / "main.cpp")], check=True, capture_output=True,
+                   timeout=300)
+    return exe
+
+
+def run_header(exe, tmp, op, f, g=None, coeffs=None):
+    n = len(f)
+    np.array(f, np.uint32).tofile(tmp / "f")
+    np.array(g if g is not None else f, np.uint32).tofile(tmp / "g")
+    np.array(coeffs if coeffs is not None else [(0, 0, 0)] * n, np.int64).astype(
+        np.uint32).tofile(tmp / "c")
+    subprocess.run([str(exe), op, str(n), str(tmp)], check=True, timeout=60)
+    return np.fromfile(tmp / "out", np.uint32).reshape(n, NL).tolist()
+
+
+def test_header_code_matches_the_models_at_the_extremes(header_exe, tmp_path):
+    """fe_mul, fe_sq, fe_add, fe_sub, fe_neg, fe_lin and carry_once of the
+    header, on reduced elements at the extremes, lazy operands and the
+    doubling's lines, return the models' limbs exactly."""
+    xs = extremes()
+    f, g = map(list, zip(*itertools.product(xs, xs[:6])))
+    lazies = lazy_elements()
+    lf, lg = map(list, zip(*itertools.product(lazies, lazies[:8] + [list(LAZY)])))
+    lin_cases = [(a, b, c) for a, b in itertools.product(xs[:6], xs[:6]) for c in LIN_COEFFS]
+    lines = [m for m, _ in doubling_lines()]
+    cases = [
+        ("mul", f, g, None, [fe_mul(a, b) for a, b in zip(f, g)]),
+        ("mul", lf, lg, None, [fe_mul(a, b) for a, b in zip(lf, lg)]),
+        ("sq", xs + lazies, None, None, [fe_sq(a) for a in xs + lazies]),
+        ("add", f, g, None, [fe_add(a, b) for a, b in zip(f, g)]),
+        ("sub", f, g, None, [fe_sub(a, b) for a, b in zip(f, g)]),
+        ("neg", xs, None, None, [fe_neg(a) for a in xs]),
+        ("lin", [a for a, _, _ in lin_cases], [b for _, b, _ in lin_cases],
+         [c for _, _, c in lin_cases], [lin(a, c[0], b, c[1], c[2]) for a, b, c in lin_cases]),
+        ("once", lines, None, None, [carry_once(m) for m in lines]),
+    ]
+    for op, a, b, c, want in cases:
+        assert run_header(header_exe, tmp_path, op, a, b, c) == want, op

@@ -15,6 +15,7 @@ from cometbft_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
 from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
 
 CSRC = Path(K.CSRC)
+ROOT = CSRC.parent.parent
 
 
 def radix_offset(i: int) -> int:
@@ -74,25 +75,32 @@ def constant(src: str, name: str) -> int:
 
 
 def test_launch_shapes_match_the_sources():
-    """Threads per lane and per block of each kernel, as the launchers in
-    csrc/ use them, are what `LAUNCH_SHAPES` (and so chip_smoke.py) says;
-    a ladder block is whole warps of whole four-thread groups, so a group
-    never straddles two warps and every shuffle has all 32 threads."""
+    """The launchers in csrc/ use the threads-per-lane and block constants
+    their kernels are bounded by; a ladder block is whole warps of whole
+    four-thread groups, so a group never straddles two warps and every
+    shuffle has all 32 threads; and the ragged batches of chip_smoke.py
+    and the card tests end in a partial block of each kernel."""
     curve = (CSRC / "curve_kernels.cu").read_text()
     lane_threads = constant((CSRC / "edwards25519.cuh").read_text(), "LANE_THREADS")
     ladder = constant(curve, "LADDER_THREADS")
-    assert K.LAUNCH_SHAPES["ladder_sub_mul8"] == (lane_threads, ladder) == (4, 64)
+    decompress = constant(curve, "DECOMPRESS_THREADS")
+    assert (lane_threads, ladder, decompress) == (4, 64, 32)
     assert ladder % 32 == 0 and 32 % lane_threads == 0
     assert "__launch_bounds__(LADDER_THREADS)" in curve
     assert "blocks_for(batch * LANE_THREADS, LADDER_THREADS), LADDER_THREADS, smem" in curve
-    assert K.LAUNCH_SHAPES["decompress"] == (1, constant(curve, "DECOMPRESS_THREADS"))
     assert "__launch_bounds__(DECOMPRESS_THREADS)" in curve
     assert "blocks_for(batch, DECOMPRESS_THREADS), DECOMPRESS_THREADS, 0" in curve
     field = (CSRC / "field_kernels.cu").read_text()
-    assert K.LAUNCH_SHAPES["fe_mul"] == K.LAUNCH_SHAPES["fe_sq"] == (1, constant(field, "THREADS"))
+    assert field.count("<<<blocks_for(batch), THREADS, 0,") == 2
     msm = (CSRC / "msm_kernels.cu").read_text()
-    assert K.LAUNCH_SHAPES["accum_weight"] == (1, constant(msm, "THREADS"))
-    assert set(K.LAUNCH_SHAPES) == set(K.launches)
+    assert "__launch_bounds__(THREADS)" in msm and "<<<blocks, THREADS, 0," in msm
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    check = int(re.search(r"^LADDER_CHECK_LANES = ([\d_]+)", smoke, re.M).group(1))
+    assert re.search(r"^RAGGED_LANES = \(1, 3, 70, LADDER_CHECK_LANES\)", smoke, re.M)
+    card = (ROOT / "tests" / "test_torch_kernels.py").read_text()
+    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 2
+    for n in (3, 70, check):
+        assert n % (ladder // lane_threads) and n % decompress, n
 
 
 def test_ladder_shared_memory_needs_no_opt_in():
