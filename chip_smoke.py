@@ -16,11 +16,16 @@ and never prints its last line):
    carry digit extremes and identity and 8-torsion A and R; `accum_weight`
    at WK = 19,968 bucket lanes on the gather table, weights and round
    count of one real 10,000-signature commit laid out with z from
-   `--seed`): exact agreement after `freeze`, zero mismatches allowed,
-   outputs inside the loose limb invariant, and launches of 1, 3, 70 and
-   1,027 lanes equal to the same lanes of the full launch (ladder and
-   decompress); time kernel and plain version with CUDA events, and the
-   kernel alone in the profiler;
+   `--seed`; then the RLC tail on that commit: `region_sum` on its
+   weighted lanes, `window_combine` on the 39 region sums, and the
+   ladder at B = 1 with k = 0, A the identity and R = -msm, whose
+   verdict must be true): exact agreement after `freeze`, zero
+   mismatches allowed, outputs inside the loose limb invariant, and
+   launches of 1, 3, 70 and 1,027 lanes equal to the same lanes of the
+   full launch (ladder and decompress); time kernel and plain version
+   with CUDA events, and the kernel alone in the profiler; for the
+   one-lane chains, also the latency floor (dependent product stages
+   times one product's latency, read off `decompress`'s time);
 4. the main path, two routes, each with every launch count set to 0
    just before it and read right after; a kernel of the route that was
    never launched is an error:
@@ -35,9 +40,13 @@ and never prints its last line):
      (`crypto.ed25519._rlc_beats_ladder`): the same 16 commits, cold and
      warm, all of which must verify, then the bad-lane commit, whose
      all-ok scalar must be false and whose blame rerun must give the
-     exact bitmap; every one of the five kernels must have launched.
+     exact bitmap; `decompress`, `accum_weight`, `region_sum`,
+     `window_combine` and `ladder_sub_mul8` must have launched on every
+     commit the layout accepted, and `fe_mul` plus `fe_sq` at most twice
+     a commit (the niels forms of A and R).
    A stage split of one warm commit of each route (host pack, H2D,
-   device, D2H) and a profile of its device kernels follow;
+   device, D2H) and a profile of its device kernels follow; the RLC
+   commit must run fewer than 1,000 device kernels;
 5. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (multiplies at 100 and
    squarings at 55 wide integer multiplies);
@@ -88,7 +97,21 @@ SOURCES = {
     "ladder_sub_mul8": ("cometbft_tpu_torch/csrc/curve_kernels.cu",
                         "cometbft_tpu/ops/curve.py:379"),
     "accum_weight": ("cometbft_tpu_torch/csrc/msm_kernels.cu", "cometbft_tpu/ops/msm.py:68"),
+    "region_sum": ("cometbft_tpu_torch/csrc/msm_kernels.cu",
+                   "cometbft_tpu/ops/field.py:229, launched from cometbft_tpu/ops/msm.py:206"),
+    "window_combine": ("cometbft_tpu_torch/csrc/msm_kernels.cu",
+                       "cometbft_tpu/ops/field.py:229 and :233, launched from "
+                       "cometbft_tpu/ops/msm.py:322"),
 }
+# Dependent field-product stages of the one-lane chains: a region's tree is
+# 9 additions of 3 products in a row (a, b, then c = (T1 2d) T2, then the
+# four outputs); with four threads a lane, a doubling and an addition are
+# 2 stages each (csrc/edwards25519.cuh), and the ladder at B = 1 runs its
+# lane table (1 + 7 x 3), 64 windows of 12, the addition of -R (2) and
+# three doublings.
+REGION_SUM_STAGES = 9 * 3
+LADDER_STAGES = 1 + 7 * 3 + 64 * 12 + 2 + 3 * 2
+RLC_MAX_DEVICE_KERNELS = 1_000
 
 
 def log(*args) -> None:
@@ -120,9 +143,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 def kernel_device_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float:
     """Mean device time of one launch of `kernel` alone, from a profiler
-    trace of `reps` calls of fn() (the host's launch path excluded). A
-    trace that lost events (one H100 run saw 151 of 200 `fe_sq` launches)
-    is taken again, up to `attempts` times; the count must match."""
+    trace of `reps` calls of fn() (the host's launch path excluded): the
+    mean over the launches the trace holds. The profiler loses launches
+    now and then (H100 runs saw 151 of 200 `fe_sq` launches, 12 of 20
+    `accum_weight`, three traces in a row of 199 of 200 `region_sum`, and
+    42, 47 and 48 of 50 of the ladder at B = 1); a trace that holds fewer
+    than nine in ten of the launches is taken again, up to `attempts`
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -134,9 +161,10 @@ def kernel_device_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float:
             torch.cuda.synchronize()
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}_kernel" in e.name]
-        if len(ev) == reps:
-            return sum(e.device_time_total for e in ev) / reps / 1e3
-        log(f"profiler trace {attempt + 1} of {kernel}: {len(ev)} of {reps} launches seen")
+        if len(ev) != reps:
+            log(f"profiler trace {attempt + 1} of {kernel}: {len(ev)} of {reps} launches seen")
+        if 10 * len(ev) >= 9 * reps:
+            return sum(e.device_time_total for e in ev) / len(ev) / 1e3
     raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, expected {reps}")
 
 
@@ -245,7 +273,9 @@ def ptxas_per_kernel(report: dict) -> dict:
 def products_per_lane(s_rounds: int):
     """Field products per lane of each kernel, (multiplies, squarings),
     counted by running its plain version on one CPU lane through counting
-    routes; `accum_weight` at `s_rounds` rounds."""
+    routes (each call counts its lanes); `accum_weight` at `s_rounds`
+    rounds; `region_sum` per region and `window_combine` per run, whose
+    one lane is the MSM's total."""
     from cometbft_tpu_torch.ops import curve as C
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import msm as M
@@ -253,11 +283,11 @@ def products_per_lane(s_rounds: int):
     count = [0, 0]
 
     def mul(a, b):
-        count[0] += 1
+        count[0] += max(a.shape[-1], b.shape[-1])
         return F.mul_plain(a, b)
 
     def sq(a):
-        count[1] += 1
+        count[1] += a.shape[-1]
         return F.sq_plain(a)
 
     ops = C.PointOps(mul, sq)
@@ -274,8 +304,14 @@ def products_per_lane(s_rounds: int):
     idx = torch.zeros((s_rounds, 1), dtype=torch.int32)
     acc = M._accumulate(niels, idx, idx != 0, ops=ops)
     M._weight_step(ops, acc, torch.zeros(1, dtype=torch.int32))
+    n_accum = tuple(count)
+    count[:] = [0, 0]
+    M.region_tree_sum_plain(torch.stack(C.identity(M.K_BUCKETS, "cpu")), ops=ops)
+    n_region = tuple(count)
+    count[:] = [0, 0]
+    M.window_combine_plain(torch.stack(C.identity(M.N_REGIONS, "cpu")), ops=ops)
     return {"fe_mul": (1, 0), "fe_sq": (0, 1), "decompress": n_dec, "ladder_sub_mul8": n_ladder,
-            "accum_weight": tuple(count)}
+            "accum_weight": n_accum, "region_sum": n_region, "window_combine": tuple(count)}
 
 
 def wide_muls(products) -> int:
@@ -490,16 +526,70 @@ def main(argv=None) -> int:
     log(f"accum_weight input: one commit laid out in {time.perf_counter() - t0:.2f} s, "
         f"s_rounds {prep['s_rounds']}, S = {s_pad}, WK = {M.WK}, M = {2 * B + 1} points")
     per_lane["accum_weight"] = products_per_lane(s_pad)["accum_weight"]
-    got = torch.stack(M.accumulate_weighted(niels, gather_idx, gather_neg, weights))
+    got = M.accumulate_weighted(niels, gather_idx, gather_neg, weights)
     check_loose("accum_weight", got)
-    want = torch.stack(M.accumulate_weighted_plain(niels, gather_idx, gather_neg, weights))
+    want = M.accumulate_weighted_plain(niels, gather_idx, gather_neg, weights)
     mism, err = frozen_diff(F, got, want)
     n_pts = niels[0].shape[1]
     record("accum_weight", mism, err, lambda: K.accum_weight(niels, gather_idx, neg32, weights),
            lambda: M.accumulate_weighted_plain(niels, gather_idx, gather_neg, weights), 20, M.WK,
            3 * 88 * n_pts + 2 * 4 * s_pad * M.WK + 4 * M.WK + 4 * 88 * M.WK)
     kern["accum_weight"].update(s_rounds=prep["s_rounds"], s_pad=s_pad)
-    del items, got, want, gather_idx, gather_neg, neg32, niels, weights, pts, encs
+    del items, want, gather_idx, gather_neg, neg32, niels, weights, pts, encs
+
+    # the RLC tail on that commit: its weighted lanes (the accum_weight
+    # output), region sums, total, and [8](msm + [c]B) by one ladder launch
+    n_dec = sum(per_lane["decompress"])
+    product_cycles = kern["decompress"]["device_only_ms"] * 1e-3 * sm_mhz * 1e6 / n_dec
+    log(f"one field product's latency, from decompress's chain of {n_dec}: "
+        f"{product_cycles:.0f} cycles at {sm_mhz:.0f} MHz")
+
+    def floor_ms(stages: int) -> float:
+        return stages * product_cycles / (sm_mhz * 1e6) * 1e3
+
+    sums = M.region_tree_sum(got)
+    check_loose("region_sum", sums)
+    mism, err = frozen_diff(F, sums, M.region_tree_sum_plain(got))
+    record("region_sum", mism, err, lambda: K.region_sum(got),
+           lambda: M.region_tree_sum_plain(got), 200, M.N_REGIONS,
+           4 * 88 * M.WK + 4 * 88 * M.N_REGIONS)
+    kern["region_sum"]["latency_floor_ms"] = floor_ms(REGION_SUM_STAGES)
+    msm = M.window_combine(sums)
+    check_loose("window_combine", msm)
+    mism, err = frozen_diff(F, msm, M.window_combine_plain(sums))
+    combine_stages = 2 * (sum(M.REGION_DBL) + M.N_REGIONS)
+    record("window_combine", mism, err, lambda: K.window_combine(sums),
+           lambda: M.window_combine_plain(sums), 50, 1, 4 * 88 * M.N_REGIONS + 4 * 88)
+    kern["window_combine"].update(latency_floor_ms=floor_ms(combine_stages),
+                                  product_stages=combine_stages)
+    c_dig = torch.from_numpy(prep["c_digits"]).to(dev)
+    tail_args = (c_dig, torch.zeros_like(c_dig), C.identity(1, dev), C.neg(msm))
+    tail = torch.stack(C.ladder_sub_mul8(*tail_args))
+    mism, err = frozen_diff(F, tail, torch.stack(C.ladder_sub_mul8_plain(*tail_args)))
+    if mism:
+        raise AssertionError(f"ladder_sub_mul8 at B = 1: {mism} lanes disagree with the plain "
+                             "version")
+    if not bool(F.is_zero(tail[0])[0] & F.eq(tail[1], tail[2])[0]):
+        raise AssertionError("the valid commit's [8](msm + [c]B) is not the identity")
+    tail_a4 = torch.stack(tail_args[2])
+    tail_r4 = torch.stack(tail_args[3])
+    base = C.base_niels(dev)
+
+    def tail_launch():
+        return K.ladder_sub_mul8(tail_a4, tail_r4, c_dig, tail_args[1], base)
+
+    tail_ms = cuda_ms(tail_launch, 50)
+    tail_alone = kernel_device_ms(tail_launch, "ladder_sub_mul8", 50)
+    kern["ladder_sub_mul8"]["rlc_tail_b1"] = {
+        "mismatches": mism, "max_abs_err": err, "ms": tail_ms, "device_only_ms": tail_alone,
+        "bound_ms": wide_muls(per_lane["ladder_sub_mul8"]) / mul_rate * 1e3,
+        "bound_by": "operations", "latency_floor_ms": floor_ms(LADDER_STAGES),
+        "product_stages": LADDER_STAGES}
+    log(f"RLC tail on the commit: region sums and total exact; ladder at B = 1 (k = 0, A the "
+        f"identity, R = -msm) exact, verdict true; {tail_ms:.4f} ms (device alone "
+        f"{tail_alone:.4f} ms), latency floor {floor_ms(LADDER_STAGES):.4f} ms; window_combine "
+        f"latency floor {floor_ms(combine_stages):.4f} ms ({combine_stages} stages)")
+    del got, sums, msm, tail, tail_a4, tail_r4
     torch.cuda.synchronize()
 
     # ---- phase 4: the main path, counted, route by route
@@ -589,9 +679,21 @@ def main(argv=None) -> int:
         if not isinstance(bad, E.PendingRLC) or bool(bad._all_ok.item()):
             raise AssertionError("bad-lane commit: the RLC all-ok scalar is not false")
         check_bad_lanes("RLC (blame rerun)", bad)
-        rlc_counts = read_counts("RLC", tuple(K.launches))
+        tail_kernels = ("decompress", "accum_weight", "region_sum", "window_combine",
+                        "ladder_sub_mul8")
+        rlc_counts = read_counts("RLC", tail_kernels)
     finally:
         E._rlc_beats_ladder = seam
+    accepted = rlc_counts["accum_weight"]  # one a commit the layout accepted
+    if (rlc_counts["region_sum"] != accepted or rlc_counts["window_combine"] != accepted
+            or rlc_counts["ladder_sub_mul8"] < accepted or rlc_counts["decompress"] < 2 * accepted):
+        raise AssertionError(f"RLC route: a tail kernel missed a commit: {rlc_counts}")
+    field_launches = rlc_counts["fe_mul"] + rlc_counts["fe_sq"]
+    if field_launches > 2 * accepted:
+        raise AssertionError(f"RLC route: {field_launches} fe_mul + fe_sq launches over "
+                             f"{accepted} commits, more than 2 a commit")
+    log(f"RLC route: {accepted} commits through the layout, {field_launches} fe_mul + fe_sq "
+        f"launches ({field_launches / max(accepted, 1):.2f} a commit)")
     rlc_sigs_per_s = PIPELINE_DEPTH * COMMIT_SIGS / rlc_warm_s
     log(f"RLC pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold "
         f"{rlc_cold_s:.3f} s, warm {rlc_warm_s:.3f} s (submits {rlc_warm_submit_s:.3f} s) -> "
@@ -603,7 +705,10 @@ def main(argv=None) -> int:
         kern[name]["launches_by_route"] = {"ladder": counts[name], "rlc": rlc_counts[name]}
     kern["decompress"]["launches_per_commit"] = {"ladder": 1, "rlc": 2}  # ladder: A once per set
     kern["ladder_sub_mul8"]["launches_per_commit"] = counts["ladder_sub_mul8"] / commits_verified
-    kern["accum_weight"]["launches_per_commit"] = rlc_counts["accum_weight"] / rlc_commits
+    for name in ("accum_weight", "region_sum", "window_combine"):
+        kern[name]["launches_per_commit"] = rlc_counts[name] / rlc_commits
+    for name in ("fe_mul", "fe_sq"):
+        kern[name]["rlc_launches_per_accepted_commit"] = rlc_counts[name] / max(accepted, 1)
 
     # stage split of one warm commit (not counted: the counts were read above)
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
@@ -658,10 +763,18 @@ def main(argv=None) -> int:
 
     # the RLC route's stage split, the same warm commit
     rlc_stage = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    buf_host, fields, s_commit = bv._pack_rlc()
-    rlc_stage["host_prepare_ms"] = (time.perf_counter() - t0) * 1e3
+    # the layout draws z afresh each time and declines about one commit in
+    # thirty (PERF.md, section 6); a declined one is packed again
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = bv._pack_rlc()
+        rlc_stage["host_prepare_ms"] = (time.perf_counter() - t0) * 1e3
+        if packed is not None:
+            break
+    else:
+        raise AssertionError("the RLC layout declined the stage-split commit 5 times")
+    buf_host, fields, s_commit = packed
     torch.cuda.synchronize()
     ev[0].record()
     buf = buf_host.to(dev, non_blocking=True)
@@ -676,7 +789,9 @@ def main(argv=None) -> int:
         raise AssertionError("RLC stage-split commit did not verify")
     rlc_stage["d2h_ms"] = (time.perf_counter() - t0) * 1e3
     rlc_stage["s_pad"] = s_commit
-    rlc_stage["kernels_ms"] = 2 * kern["decompress"]["ms"] + kern["accum_weight"]["ms"]
+    rlc_stage["kernels_ms"] = (2 * kern["decompress"]["ms"] + kern["accum_weight"]["ms"]
+                               + kern["region_sum"]["ms"] + kern["window_combine"]["ms"]
+                               + kern["ladder_sub_mul8"]["rlc_tail_b1"]["ms"])
     rlc_stage["torch_glue_and_tail_ms"] = rlc_stage["device_ms"] - rlc_stage["kernels_ms"]
     rlc_stage["h2d_bytes_per_lane"] = buf_host.numel() / n_lanes
     log("RLC stage split, one warm 10,000-signature commit: " + ", ".join(
@@ -696,6 +811,9 @@ def main(argv=None) -> int:
     rlc_stage["profiled_device_kernels"] = len(dev_events)
     rlc_stage["profiled_kernels_by_name"] = by_kernel
     rlc_stage["profiled_device_busy_ms"] = busy_ms
+    if len(dev_events) >= RLC_MAX_DEVICE_KERNELS:
+        raise AssertionError(f"one RLC commit ran {len(dev_events)} device kernels, "
+                             f"not under {RLC_MAX_DEVICE_KERNELS}")
 
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,

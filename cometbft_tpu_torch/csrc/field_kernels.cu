@@ -13,6 +13,8 @@
 // Design: reads and writes are limb-major (limb j of lane l at j * B + l),
 // so a warp touches 32 neighbouring words per limb; the product is
 // computed in radix 2^25.5 (field25519.cuh) and written back canonical.
+// 64-thread blocks: a 10,240-lane launch gives 160 blocks, so each of the
+// 132 SMs gets work (256-thread blocks gave 40).
 
 #include "field25519.cuh"
 
@@ -20,7 +22,7 @@ using namespace f25519;
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 64;
 
 __global__ void fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                               int32_t* __restrict__ out, int64_t batch) {

@@ -26,6 +26,48 @@
 //   reference's way: swap Y+X and Y-X and negate 2dT under a mask. One
 //   thread per lane gives 19,968 threads, 156 blocks of 128 on 132 SMs:
 //   occupancy, not the multiplies, is expected to limit it.
+//
+// region_sum_kernel and window_combine_kernel replace the field products
+// that the reference's XLA tail runs after the weighted lanes:
+// cometbft_tpu/ops/field.py:_mul_kernel and :_sq_kernel, as launched from
+// cometbft_tpu/ops/msm.py:_region_tree_sum (:206) and _window_combine
+// (:322). The reference fuses that tail into one XLA program; run eagerly
+// it is one launch per field product (4,768 a commit, most of them one
+// lane wide), so here each step is one kernel.
+//
+// region_sum_kernel: the pairwise tree over each region's K_BUCKETS lanes
+// (ops/msm.py region_tree_sum_plain), lane i plus lane i + half for half =
+// 256, 128, ..., 1, each addition add-2008-hwcd-3 (ge_add), so the sums
+// agree with the plain version after canonicalization.
+//   Bound on the H100: bytes. 39 regions x 511 additions x 9 products
+//   (179,361 products, 100 wide multiplies each: 1.07 us) against the 7.03
+//   MB of weighted lanes read once (2.10 us at 3.35 TB/s).
+//   Design: one block of SUM_THREADS = 256 threads per region. Each thread
+//   adds its two lanes of the first level straight from device memory
+//   (coalesced: neighbouring threads, neighbouring lanes), then the partial
+//   sums stay in shared memory, word w of slot i at w * SUM_THREADS + i so
+//   a warp's accesses hit 32 distinct banks: 256 points of 40 words, 40 KB,
+//   under the 48 KB a launch may take without cudaFuncSetAttribute. Eight
+//   levels follow, each halving the active threads, with a barrier between
+//   levels; the chain is 9 additions deep, so latency, not the card's
+//   rate, sets its time.
+//
+// window_combine_kernel: Horner over the regions in descending weight
+// (ops/msm.py window_combine_plain): REGION_DBL[r] doublings, then region
+// r added in; 250 doublings and 39 additions, one lane.
+//   Bound on the H100: operations, (1,000 x 55 + 1,351 x 100) wide
+//   multiplies, 0.011 us: meaningless for one dependent chain, whose floor
+//   is its 578 product stages (2 per doubling, 2 per addition) times the
+//   latency of one product.
+//   Design: one lane on a group of four threads with the ladder's 4-way
+//   formulas (edwards25519.cuh, grp_dbl / grp_add), so each doubling and
+//   addition is 2 stages of one product per thread, not 8 or 9 products
+//   in a row. A region's point enters as its niels form (curve.add_niels:
+//   the same products as curve.add), each thread computing its own
+//   component (one product) before the doublings, off the chain. grp_dbl
+//   computes T, which dbl_no_t would drop, so every doubling is curve.dbl.
+//   The launch is one warp (every shuffle needs all 32 threads): its
+//   eight groups compute the same lane and group 0 stores it.
 
 #include "edwards25519.cuh"
 
@@ -36,6 +78,20 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int C_BITS = 10;
 constexpr int NIELS_WORDS = 3 * NLIMBS12;  // one point of the (M, 3, 22) table
+
+constexpr int K_BUCKETS = 1 << (C_BITS - 1);          // lanes per region
+constexpr int SUM_THREADS = K_BUCKETS / 2;             // one first-level addition each
+constexpr int SUM_SMEM_WORDS = 4 * NL * SUM_THREADS;  // one point per thread
+constexpr int COMBINE_THREADS = 32;                    // one warp
+constexpr int N_REGIONS = 39;
+
+// Doublings before region r is added in (ops/msm.py REGION_DBL): 10 when
+// the weight drops a window, 0 when region r shares its window with the
+// region before it.
+__constant__ int REGION_DBL[N_REGIONS] = {0,  10, 10, 10, 10, 10, 10, 10, 10, 10,
+                                          10, 10, 10, 10, 0,  10, 0,  10, 0,  10,
+                                          0,  10, 0,  10, 0,  10, 0,  10, 0,  10,
+                                          0,  10, 0,  10, 0,  10, 0,  10, 0};
 
 __global__ void __launch_bounds__(THREADS)
     accum_weight_kernel(const int32_t* __restrict__ niels, const int32_t* __restrict__ idx,
@@ -77,6 +133,103 @@ __global__ void __launch_bounds__(THREADS)
   fe_to_limbs12(out + 3 * plane + lane, lanes, r.T);
 }
 
+// Extended point `lane` of a (4, 22, lanes) stack of limb planes.
+__device__ __forceinline__ ge load_point(const int32_t* pts, int64_t lane, int64_t lanes) {
+  const int64_t plane = (int64_t)NLIMBS12 * lanes;
+  ge r;
+  r.X = load_fe(pts, lane, lanes);
+  r.Y = load_fe(pts + plane, lane, lanes);
+  r.Z = load_fe(pts + 2 * plane, lane, lanes);
+  r.T = load_fe(pts + 3 * plane, lane, lanes);
+  return r;
+}
+
+// Coordinate c of shared-memory slot i, word w at (c * NL + w) * SUM_THREADS + i.
+__device__ __forceinline__ fe smem_fe(const uint32_t* sm, int c, int i) {
+  fe r;
+#pragma unroll
+  for (int w = 0; w < NL; ++w) r.v[w] = sm[(c * NL + w) * SUM_THREADS + i];
+  return r;
+}
+
+__device__ __forceinline__ void smem_put(uint32_t* sm, int c, int i, const fe& v) {
+#pragma unroll
+  for (int w = 0; w < NL; ++w) sm[(c * NL + w) * SUM_THREADS + i] = v.v[w];
+}
+
+__device__ __forceinline__ ge smem_point(const uint32_t* sm, int i) {
+  ge r;
+  r.X = smem_fe(sm, 0, i);
+  r.Y = smem_fe(sm, 1, i);
+  r.Z = smem_fe(sm, 2, i);
+  r.T = smem_fe(sm, 3, i);
+  return r;
+}
+
+__device__ __forceinline__ void smem_put_point(uint32_t* sm, int i, const ge& p) {
+  smem_put(sm, 0, i, p.X);
+  smem_put(sm, 1, i, p.Y);
+  smem_put(sm, 2, i, p.Z);
+  smem_put(sm, 3, i, p.T);
+}
+
+// pts: (4, 22, regions * K_BUCKETS) extended points; out: (4, 22, regions),
+// canonical. Block b sums region b.
+__global__ void __launch_bounds__(SUM_THREADS)
+    region_sum_kernel(const int32_t* __restrict__ pts, int32_t* __restrict__ out,
+                      int64_t regions) {
+  extern __shared__ uint32_t smem[];
+  const int t = threadIdx.x;
+  const int64_t lanes = regions * K_BUCKETS;
+  const int64_t first = (int64_t)blockIdx.x * K_BUCKETS + t;
+  {
+    ge p = load_point(pts, first, lanes);
+    ge_add(p, load_point(pts, first + SUM_THREADS, lanes));
+    smem_put_point(smem, t, p);
+  }
+#pragma unroll 1
+  for (int half = SUM_THREADS / 2; half >= 1; half /= 2) {
+    __syncthreads();
+    if (t < half) {  // slots [half, 2 half) are read only, slot t written only by thread t
+      ge p = smem_point(smem, t);
+      ge_add(p, smem_point(smem, t + half));
+      smem_put_point(smem, t, p);
+    }
+  }
+  __syncthreads();
+  if (t < 4) fe_to_limbs12(out + t * NLIMBS12 * regions + blockIdx.x, regions, smem_fe(smem, t, 0));
+}
+
+// sums: (4, 22, regions) extended points, regions <= N_REGIONS; out:
+// (4, 22, 1), canonical.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+    window_combine_kernel(const int32_t* __restrict__ sums, int32_t* __restrict__ out,
+                          int64_t regions) {
+  const int q = threadIdx.x % LANE_THREADS;
+  const int64_t plane = (int64_t)NLIMBS12 * regions;
+  fe r = fe_small((q == 1 || q == 2) ? 1u : 0u);  // the identity, layout A
+  int lay = 0;
+#pragma unroll 1
+  for (int reg = 0; reg < regions; ++reg) {
+    const int n_dbl = REGION_DBL[reg];
+    const int add_lay = n_dbl > 0 ? 0 : lay;  // grp_dbl returns layout A
+    // this thread's niels component of region reg's point (curve.to_niels)
+    const int role = niels_role(q, add_lay);
+    const int u_coord = role == T2D ? 3 : (role == Z2 ? 2 : 0);
+    const fe u = load_fe(sums + u_coord * plane, reg, regions);
+    const fe v = load_fe(sums + plane, reg, regions);
+    const fe opnd = niels_part(u, v, role);
+#pragma unroll 1
+    for (int i = 0; i < n_dbl; ++i) r = grp_dbl(r, q, i == 0 ? lay : 0);
+    r = grp_add(r, q, add_lay, opnd, 0u);
+    lay = add_lay ^ 1;
+  }
+  // thread q holds X, Y, Z, T (layout A) or X, T, Z, Y (layout B)
+  if (threadIdx.x < LANE_THREADS) {
+    fe_to_limbs12(out + nib(lay ? 0x1230u : 0x3210u, q) * NLIMBS12, 1, r);
+  }
+}
+
 }  // namespace
 
 extern "C" int accum_weight_launch(const void* niels, const void* idx, const void* neg,
@@ -86,5 +239,19 @@ extern "C" int accum_weight_launch(const void* niels, const void* idx, const voi
   accum_weight_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)niels, (const int32_t*)idx, (const int32_t*)neg, (const int32_t*)weights,
       (int32_t*)out, points, rounds, lanes);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int region_sum_launch(const void* pts, void* out, int64_t regions, void* stream) {
+  region_sum_kernel<<<(unsigned)regions, SUM_THREADS, sizeof(uint32_t) * SUM_SMEM_WORDS,
+                      (cudaStream_t)stream>>>((const int32_t*)pts, (int32_t*)out, regions);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int window_combine_launch(const void* sums, void* out, int64_t regions,
+                                     void* stream) {
+  if (regions < 1 || regions > N_REGIONS) return (int)cudaErrorInvalidValue;
+  window_combine_kernel<<<1, COMBINE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)sums, (int32_t*)out, regions);
   return (int)cudaGetLastError();
 }

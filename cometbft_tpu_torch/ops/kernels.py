@@ -42,9 +42,14 @@ NVCC_FLAGS = [
 ]
 LIBRARIES = ("field_kernels", "curve_kernels", "msm_kernels")
 
+# The RLC layout's regions (ops/msm.py K_BUCKETS, N_REGIONS), which
+# csrc/msm_kernels.cu has as constants.
+REGION_LANES = 512
+N_REGIONS = 39
+
 # One plain integer per kernel, incremented where the kernel is launched.
 launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0,
-            "accum_weight": 0}
+            "accum_weight": 0, "region_sum": 0, "window_combine": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -59,6 +64,8 @@ _SIGNATURES = {
     },
     "msm_kernels": {
         "accum_weight_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
+        "region_sum_launch": [_P, _P, _I64, _P],
+        "window_combine_launch": [_P, _P, _I64, _P],
     },
 }
 
@@ -259,4 +266,30 @@ def accum_weight(niels, gather_idx: torch.Tensor, gather_neg: torch.Tensor,
     _launch(f, "accum_weight", dev, lanes,
             table.data_ptr(), gather_idx.data_ptr(), gather_neg.data_ptr(), weights.data_ptr(),
             out.data_ptr(), points, rounds)
+    return out
+
+
+def region_sum(weighted: torch.Tensor) -> torch.Tensor:
+    """Sum of each region's REGION_LANES lanes by the pairwise tree of the
+    RLC route: (4, 22, R * REGION_LANES) extended points (loose limbs),
+    stacked, -> (4, 22, R), canonical. One block per region."""
+    lanes = weighted.shape[-1]
+    if lanes % REGION_LANES:
+        raise ValueError(f"region_sum: {lanes} lanes is not a whole number of regions")
+    regions = lanes // REGION_LANES
+    _check(weighted, (4, NLIMBS, lanes), "region_sum weighted")
+    f = _fn("msm_kernels", "region_sum_launch")
+    out = torch.empty((4, NLIMBS, regions), dtype=torch.int32, device=weighted.device)
+    _launch(f, "region_sum", weighted.device, regions, weighted.data_ptr(), out.data_ptr())
+    return out
+
+
+def window_combine(sums: torch.Tensor) -> torch.Tensor:
+    """The MSM's total from its N_REGIONS region sums, Horner over the
+    regions in descending weight: (4, 22, N_REGIONS) extended points (loose
+    limbs), stacked, -> (4, 22, 1), canonical. One warp."""
+    _check(sums, (4, NLIMBS, N_REGIONS), "window_combine sums")
+    f = _fn("msm_kernels", "window_combine_launch")
+    out = torch.empty((4, NLIMBS, 1), dtype=torch.int32, device=sums.device)
+    _launch(f, "window_combine", sums.device, N_REGIONS, sums.data_ptr(), out.data_ptr())
     return out

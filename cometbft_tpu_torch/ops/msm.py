@@ -16,17 +16,23 @@ then runs
   1. ZIP-215 decompression of every A_i, R_i (`curve.decompress`),
   2. `accumulate_weighted`: S rounds of lane-parallel mixed additions,
      each gathering one point per bucket lane, then each lane multiplied
-     by its bucket weight (the `accum_weight` kernel on CUDA tensors,
-     `accumulate_weighted_plain` on CPU tensors),
-  3. `_region_tree_sum`: a pairwise tree over each region's 512 lanes,
-  4. `_window_combine`: Horner over regions (10 doublings per window),
-  5. [c]B by the fixed-base ladder, the final add, x8, identity check:
-     one scalar verdict.
+     by its bucket weight (the `accum_weight` kernel),
+  3. `region_tree_sum`: a pairwise tree over each region's 512 lanes
+     (the `region_sum` kernel),
+  4. `window_combine`: Horner over regions (10 doublings per window; the
+     `window_combine` kernel),
+  5. [8](msm + [c]B) as one `curve.ladder_sub_mul8` at B = 1, i.e.
+     [8]([c]B + [0]A - R) with A the identity and R = -msm, then the
+     identity check: one scalar verdict.
 
-Both devices take the reference's kernel route (2-3 above); the
-reference's non-Pallas `_bucket_reduce` computes the same sums another
-way and has no twin here. Each `lax.scan` of the reference is a Python
-loop, and its `lax.cond` a Python branch on the static `REGION_DBL`.
+Steps 2-4 launch their kernel on CUDA tensors and run their plain version
+(`*_plain`, on the plain field routes) on CPU tensors; the reference runs
+3-5 inside its one XLA program, where a kernel per field product costs no
+launch. Both devices take the reference's kernel route (its
+`_accum_weight_kernel`, then `_region_tree_sum`); the reference's
+non-Pallas `_bucket_reduce` computes the same sums another way and has
+no twin here. Each `lax.scan` of the reference is a Python loop, and
+its `lax.cond` a Python branch on the static `REGION_DBL`.
 """
 
 from __future__ import annotations
@@ -109,53 +115,75 @@ def accumulate_weighted_plain(niels, gather_idx, gather_neg, weights):
     """Plain PyTorch version of the `accum_weight` kernel (reference
     `_accum_weight_kernel`) on any device: `_accumulate` then the per-lane
     weight step, through the plain field routes. weights: (WK,) or
-    (N_REGIONS, K_BUCKETS) int32. Returns 4 x (22, WK) loose limbs."""
+    (N_REGIONS, K_BUCKETS) int32. Returns (4, 22, WK) loose limbs."""
     acc = _accumulate(niels, gather_idx, gather_neg)
-    return _weight_step(C._PLAIN, acc, weights.reshape(-1).to(torch.int32))
+    return torch.stack(_weight_step(C._PLAIN, acc, weights.reshape(-1).to(torch.int32)))
 
 
 def accumulate_weighted(niels, gather_idx, gather_neg, weights):
     """Weighted per-lane bucket points [w_l](sum of lane l's gathered
-    points), 4 x (22, WK). One `accum_weight` launch on CUDA tensors
+    points), stacked (4, 22, WK). One `accum_weight` launch on CUDA tensors
     (canonical limbs); `accumulate_weighted_plain` on CPU tensors."""
     if F.on_gpu(gather_idx):
-        out = K.accum_weight(
+        return K.accum_weight(
             tuple(c.contiguous() for c in niels),
             gather_idx.to(torch.int32).contiguous(),
             gather_neg.to(torch.int32).contiguous(),
             weights.reshape(-1).to(torch.int32).contiguous(),
         )
-        return tuple(out)
     return accumulate_weighted_plain(niels, gather_idx, gather_neg, weights)
 
 
-def _region_tree_sum(weighted):
-    """Pairwise tree over the K axis of each region:
-    4 x (22, WK) -> 4 x (22, N_REGIONS)."""
-    pts = tuple(x.reshape(F.NLIMBS, N_REGIONS, K_BUCKETS) for x in weighted)
+def region_tree_sum_plain(weighted, ops=C._PLAIN):
+    """Plain PyTorch version of the `region_sum` kernel (the reference's
+    `_region_tree_sum`) on any device, through `ops`' field routes: a
+    pairwise tree over the K axis of each region, lane i plus lane
+    i + half at each level. (4, 22, R * K_BUCKETS) -> (4, 22, R)."""
+    pts = tuple(x.reshape(F.NLIMBS, -1, K_BUCKETS) for x in weighted)
+    regions = pts[0].shape[1]
     k = K_BUCKETS
     while k > 1:
         half = k // 2
         p = tuple(x[..., :half].reshape(F.NLIMBS, -1) for x in pts)
         q = tuple(x[..., half : 2 * half].reshape(F.NLIMBS, -1) for x in pts)
-        s = C.add(p, q)
-        pts = tuple(x.reshape(F.NLIMBS, N_REGIONS, half) for x in s)
+        s = ops.add(p, q)
+        pts = tuple(x.reshape(F.NLIMBS, regions, half) for x in s)
         k = half
-    return tuple(x[..., 0] for x in pts)
+    return torch.stack([x[..., 0] for x in pts])
 
 
-def _window_combine(win_sums):
-    """Horner over regions (ordered by descending weight): REGION_DBL[r]
-    doublings, then fold region r's sum in. Regions that share a window
-    (the z/m split) get 0 doublings between them.
+def region_tree_sum(weighted):
+    """Region sums of the weighted lanes, (4, 22, WK) -> (4, 22, N_REGIONS).
+    One `region_sum` launch on a CUDA tensor (the stack `accum_weight`
+    returned; canonical limbs); `region_tree_sum_plain` on a CPU tensor."""
+    if F.on_gpu(weighted):
+        return K.region_sum(weighted)
+    return region_tree_sum_plain(weighted)
 
-    win_sums: extended coords (22, N_REGIONS). Returns (22, 1)."""
+
+def window_combine_plain(win_sums, ops=C._PLAIN):
+    """Plain PyTorch version of the `window_combine` kernel (the
+    reference's `_window_combine`) on any device, through `ops`' field
+    routes: Horner over regions (ordered by descending weight),
+    REGION_DBL[r] doublings, then fold region r's sum in. Regions that
+    share a window (the z/m split) get 0 doublings between them.
+
+    win_sums: extended coords (4, 22, N_REGIONS). Returns (4, 22, 1)."""
     acc = C.identity(1, win_sums[0].device)
     for r, n_dbl in enumerate(REGION_DBL):
         for _ in range(n_dbl):
-            acc = C.dbl(acc)
-        acc = C.add(acc, tuple(x[:, r : r + 1] for x in win_sums))
-    return acc
+            acc = ops.dbl(acc)
+        acc = ops.add(acc, tuple(x[:, r : r + 1] for x in win_sums))
+    return torch.stack(acc)
+
+
+def window_combine(win_sums):
+    """The MSM's total, (4, 22, N_REGIONS) -> (4, 22, 1). One
+    `window_combine` launch on a CUDA tensor (canonical limbs);
+    `window_combine_plain` on a CPU tensor."""
+    if F.on_gpu(win_sums):
+        return K.window_combine(win_sums.contiguous())
+    return window_combine_plain(win_sums)
 
 
 def expand_stream(stream, stream_neg, counts, s_rounds: int):
@@ -203,9 +231,13 @@ def rlc_verify(a_bytes, r_bytes, live, gather_idx, gather_neg, weights, c_digits
     niels = tuple(torch.cat([r_c, a_c, i_c], dim=1) for r_c, a_c, i_c in zip(nr, na, ident))
 
     weighted = accumulate_weighted(niels, gather_idx, gather_neg, weights)
-    msm = _window_combine(_region_tree_sum(weighted))
-    total = C.add(msm, C.fixed_base(c_digits))
-    ok_eq = C.is_identity(C.mul8(total))[0]
+    msm = window_combine(region_tree_sum(weighted))
+    # [8](msm + [c]B) = [8]([c]B + [0]A - R) with A the identity, R = -msm
+    X, Y, Z = C.ladder_sub_mul8(c_digits, torch.zeros_like(c_digits),
+                                C.identity(1, a_bytes.device), C.neg(msm))
+    # the identity test, X == 0 and Y == Z, as one freeze of two lanes, not
+    # three: each freeze is some 370 small kernels on the card
+    ok_eq = torch.all(F.is_zero(torch.cat([X, F.sub(Y, Z)], dim=1)))
     ok_points = torch.all(ok_a | ~live) & torch.all(ok_r | ~live)
     return ok_eq & ok_points
 

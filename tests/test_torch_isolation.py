@@ -106,6 +106,16 @@ def test_cuda_requests_without_a_library_raise(no_nvcc):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         # the dispatching wrapper: no plain fallback either
         M.accumulate_weighted(niels, table, table, fake_cuda_tensor((M.N_REGIONS, M.K_BUCKETS)))
+    weighted = fake_cuda_tensor((4, F.NLIMBS, M.WK))
+    sums = fake_cuda_tensor((4, F.NLIMBS, M.N_REGIONS))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.region_sum(weighted)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        M.region_tree_sum(weighted)  # the dispatching wrapper: no plain fallback either
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.window_combine(sums)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        M.window_combine(sums)
     assert K.launches == before
 
 
@@ -120,6 +130,10 @@ def test_launchers_refuse_cpu_tensors():
     idx = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.accum_weight((a, a, a), idx, idx, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.region_sum(torch.zeros((4, F.NLIMBS, 2 * M.K_BUCKETS), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.window_combine(torch.zeros((4, F.NLIMBS, M.N_REGIONS), dtype=torch.int32))
 
 
 def test_launchers_check_dtype_and_shape():
@@ -140,6 +154,12 @@ def test_launchers_check_dtype_and_shape():
     with pytest.raises(ValueError, match="int32"):
         K.accum_weight((a, a, a), idx, idx, types.SimpleNamespace(
             **{**vars(fake_cuda_tensor((16,))), "dtype": torch.int64}))
+    with pytest.raises(ValueError, match="whole number of regions"):
+        K.region_sum(fake_cuda_tensor((4, F.NLIMBS, M.K_BUCKETS + 1)))
+    with pytest.raises(ValueError, match="shape"):
+        K.region_sum(fake_cuda_tensor((3, F.NLIMBS, M.K_BUCKETS)))
+    with pytest.raises(ValueError, match="shape"):
+        K.window_combine(fake_cuda_tensor((4, F.NLIMBS, M.N_REGIONS - 1)))
 
 
 def test_build_dir_is_keyed_by_the_sources():

@@ -196,7 +196,50 @@ def test_accum_weight_matches_plain(dev):
     assert all(torch.equal(g, F.freeze(g)) for g in got)  # canonical output
 
 
+def group_points(regions, dev):
+    """(4, 22, regions * 512) points [s]B on the card (random digits), every
+    37th lane the identity, as a weight-0 bucket lane holds it."""
+    from cometbft_tpu_torch.ops import msm as M
+
+    rng = np.random.default_rng(regions)
+    lanes = regions * M.K_BUCKETS
+    pts = torch.stack(C.fixed_base(torch.from_numpy(
+        rng.integers(-8, 8, (64, lanes), dtype=np.int32)).to(dev)))
+    pts[..., 5::37] = torch.stack(C.identity(1, dev))
+    return pts.contiguous()
+
+
+@pytest.mark.parametrize("regions", [1, 39])
+def test_region_sum_matches_plain(dev, regions):
+    from cometbft_tpu_torch.ops import msm as M
+
+    pts = group_points(regions, dev)
+    before = K.launches["region_sum"]
+    got = M.region_tree_sum(pts)
+    assert K.launches["region_sum"] == before + 1
+    want = M.region_tree_sum_plain(pts)
+    assert got.shape == (4, F.NLIMBS, regions)
+    assert all(frozen_equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, F.freeze(g)) for g in got)  # canonical output
+
+
+def test_window_combine_matches_plain(dev):
+    from cometbft_tpu_torch.ops import msm as M
+
+    sums = M.region_tree_sum_plain(group_points(M.N_REGIONS, dev))
+    before = K.launches["window_combine"]
+    got = M.window_combine(sums)
+    assert K.launches["window_combine"] == before + 1
+    want = M.window_combine_plain(sums)
+    assert got.shape == (4, F.NLIMBS, 1)
+    assert all(frozen_equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, F.freeze(g)) for g in got)
+
+
 def test_rlc_route_on_the_card(dev, monkeypatch):
+    """The RLC submit launches each kernel of its tail once and at most two
+    standalone field products (the niels forms of A and R); the blame
+    rerun finds the bad lane."""
     from cometbft_tpu_torch.crypto import ed25519 as E
     from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
 
@@ -206,8 +249,14 @@ def test_rlc_route_on_the_card(dev, monkeypatch):
     bv = E.Ed25519BatchVerifier(device=dev)
     for i, (pub, msg, sig) in enumerate(items):
         bv.add(E.Ed25519PubKey(pub), msg + (b"!" if i == 11 else b""), sig)
+    before = dict(K.launches)
     pending = bv.submit()
     assert isinstance(pending, E.PendingRLC)
+    torch.cuda.synchronize()
+    ran = {k: K.launches[k] - before[k] for k in K.launches}
+    assert ran["fe_mul"] + ran["fe_sq"] <= 2, ran
+    assert ran["accum_weight"] == ran["region_sum"] == ran["window_combine"] == 1, ran
+    assert ran["decompress"] == 2 and ran["ladder_sub_mul8"] == 1, ran
     ok, bits = pending.result()
     assert not ok and [i for i, b in enumerate(bits) if not b] == [11]
 

@@ -1,15 +1,18 @@
 """The CUDA kernels' code, compiled for the host and run on the CPU.
 
-This machine has no nvcc and no card, so `csrc/curve_kernels.cu` and
-`csrc/field_kernels.cu` are compiled here with g++ against a small header
-that stands in for the CUDA features they use: each CUDA thread of a block
-is a user-space context (`ucontext`), `__syncthreads` a hand-over to the
-next one round-robin, `__shfl_sync` an exchange through an array between
-two such barriers. That runs the four-threads-per-lane
-ladder (its shuffles, layouts, table columns and signed-digit handling),
-`decompress` and the field products on small batches, which must agree
-with the plain PyTorch versions after `freeze`. Partial thread groups and
-partial blocks are in every ladder case. Skips without g++.
+This machine has no nvcc and no card, so `csrc/curve_kernels.cu`,
+`csrc/field_kernels.cu` and `csrc/msm_kernels.cu` are compiled here with
+g++ against a small header that stands in for the CUDA features they use:
+each CUDA thread of a block is a user-space context (`ucontext`),
+`__syncthreads` a hand-over to the next one round-robin, `__shfl_sync` an
+exchange through an array between two such barriers, shared memory one
+array per block. That runs the four-threads-per-lane ladder (its
+shuffles, layouts, table columns and signed-digit handling), `decompress`,
+the field products, the RLC tail's `region_sum` (one block per region,
+partial sums in shared memory) and `window_combine` (one lane on four
+threads) on small inputs, which must agree with the plain PyTorch versions
+after `freeze`. Partial thread groups and partial blocks are in every
+ladder case. Skips without g++.
 """
 
 import shutil
@@ -24,6 +27,7 @@ from cometbft_tpu_torch.crypto import ed25519_ref as ref  # noqa: E402
 from cometbft_tpu_torch.ops import curve as C  # noqa: E402
 from cometbft_tpu_torch.ops import field as F  # noqa: E402
 from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
+from cometbft_tpu_torch.ops import msm as M  # noqa: E402
 
 SHIM = r"""
 #pragma once
@@ -163,6 +167,24 @@ int main(int argc, char** argv) {
   return 0;
 }
 """,
+    "msm_kernels": r"""
+int main(int argc, char** argv) {
+  const std::string kind = argv[1], d = argv[3];
+  const long regions = atol(argv[2]);
+  std::vector<int32_t> out(4 * 22 * (kind == "region_sum" ? regions : 1), -1);
+  if (kind == "region_sum") {
+    auto pts = rd(d + "/pts", 4 * 22 * regions * K_BUCKETS);
+    emu_launch(regions, SUM_THREADS, sizeof(uint32_t) * SUM_SMEM_WORDS,
+               [&] { region_sum_kernel(pts.data(), out.data(), regions); });
+  } else {
+    auto sums = rd(d + "/sums", 4 * 22 * regions);
+    emu_launch(1, COMBINE_THREADS, 0,
+               [&] { window_combine_kernel(sums.data(), out.data(), regions); });
+  }
+  wr(d + "/out", out);
+  return 0;
+}
+""",
 }
 
 
@@ -273,5 +295,48 @@ def test_ladder_matches_plain(host_build, tmp_path, n):
                "k": kd.numpy(), "base": C.BASE_NIELS.numpy()},
               [("out", (3, F.NLIMBS, n))], tmp_path)[0]
     want = C.ladder_sub_mul8_plain(sd, kd, tuple(a), tuple(r))
+    assert all(frozen_equal(g, w) for g, w in zip(out, want))
+    assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))
+
+
+def random_points(rng, n):
+    """n extended points of the prime-order group, (4, 22, n) int32 limbs,
+    as the weighted lanes hold them: Z not 1, and some lanes the identity
+    (a lane of weight 0) or an 8-torsion point. P_{i+1} = P_i + Q from a
+    random start and step."""
+    start = ref._ext_scalar_mul(int(rng.integers(1, 2**62)), ref.B_POINT)
+    step = ref._ext_scalar_mul(int(rng.integers(1, 2**62)), ref.B_POINT)
+    t8 = torsion_point()
+    out = np.zeros((4, F.NLIMBS, n), np.int32)
+    pt = start
+    for i in range(n):
+        pt = ref._ext_add(pt, step)
+        if i % 37 == 5:
+            lane = ref._IDENT
+        elif i % 101 == 9:
+            lane = ref._ext_add(pt, t8)
+        else:
+            lane = pt
+        for c in range(4):
+            out[c, :, i] = F.from_int(lane[c] % F.P_INT)
+    return out
+
+
+@pytest.mark.parametrize("regions", [1, 3])
+def test_region_sum_matches_plain(host_build, tmp_path, regions):
+    rng = np.random.default_rng(20 + regions)
+    pts = random_points(rng, regions * M.K_BUCKETS)
+    out = run(host_build["msm_kernels"], "region_sum", regions, {"pts": pts},
+              [("out", (4, F.NLIMBS, regions))], tmp_path)[0]
+    want = M.region_tree_sum_plain(torch.from_numpy(pts))
+    assert all(frozen_equal(g, w) for g, w in zip(out, want))
+    assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))
+
+
+def test_window_combine_matches_plain(host_build, tmp_path):
+    sums = random_points(np.random.default_rng(30), M.N_REGIONS)
+    out = run(host_build["msm_kernels"], "window_combine", M.N_REGIONS, {"sums": sums},
+              [("out", (4, F.NLIMBS, 1))], tmp_path)[0]
+    want = M.window_combine_plain(torch.from_numpy(sums))
     assert all(frozen_equal(g, w) for g, w in zip(out, want))
     assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))

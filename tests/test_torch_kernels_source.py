@@ -61,13 +61,21 @@ def test_every_exported_launcher_is_bound():
 
 
 def test_msm_kernel_constants_match_the_layout():
+    """C_BITS, the region layout and the Horner chain's REGION_DBL in
+    msm_kernels.cu are those of ops/msm.py, and the launchers' region
+    constants too."""
     from cometbft_tpu_torch.ops import msm as M
 
     src = (CSRC / "msm_kernels.cu").read_text()
     assert int(re.search(r"constexpr int C_BITS = (\d+);", src).group(1)) == M.C_BITS
     assert "NIELS_WORDS = 3 * NLIMBS12" in src
+    assert "constexpr int K_BUCKETS = 1 << (C_BITS - 1);" in src
+    assert constant(src, "N_REGIONS") == M.N_REGIONS == K.N_REGIONS
+    assert M.K_BUCKETS == K.REGION_LANES
+    body = re.search(r"__constant__ int REGION_DBL\[N_REGIONS\] = \{([^}]*)\}", src).group(1)
+    assert tuple(int(x) for x in body.split(",")) == M.REGION_DBL
     assert set(K.launches) == {"fe_mul", "fe_sq", "decompress", "ladder_sub_mul8",
-                               "accum_weight"}
+                               "accum_weight", "region_sum", "window_combine"}
 
 
 def constant(src: str, name: str) -> int:
@@ -91,9 +99,18 @@ def test_launch_shapes_match_the_sources():
     assert "__launch_bounds__(DECOMPRESS_THREADS)" in curve
     assert "blocks_for(batch, DECOMPRESS_THREADS), DECOMPRESS_THREADS, 0" in curve
     field = (CSRC / "field_kernels.cu").read_text()
+    assert constant(field, "THREADS") == 64
     assert field.count("<<<blocks_for(batch), THREADS, 0,") == 2
     msm = (CSRC / "msm_kernels.cu").read_text()
     assert "__launch_bounds__(THREADS)" in msm and "<<<blocks, THREADS, 0," in msm
+    # region_sum: one block per region, one first-level addition per
+    # thread; window_combine: one warp, so every shuffle has 32 threads
+    assert "constexpr int SUM_THREADS = K_BUCKETS / 2;" in msm
+    assert "__launch_bounds__(SUM_THREADS)" in msm
+    assert "<<<(unsigned)regions, SUM_THREADS, sizeof(uint32_t) * SUM_SMEM_WORDS," in msm
+    assert constant(msm, "COMBINE_THREADS") == 32
+    assert "__launch_bounds__(COMBINE_THREADS)" in msm
+    assert "<<<1, COMBINE_THREADS, 0," in msm
     smoke = (ROOT / "chip_smoke.py").read_text()
     check = int(re.search(r"^LADDER_CHECK_LANES = ([\d_]+)", smoke, re.M).group(1))
     assert re.search(r"^RAGGED_LANES = \(1, 3, 70, LADDER_CHECK_LANES\)", smoke, re.M)
@@ -116,3 +133,15 @@ def test_ladder_shared_memory_needs_no_opt_in():
     assert "sizeof(uint32_t) * (BASE_WORDS + (size_t)TBL_WORDS * LADDER_THREADS)" in curve
     assert 4 * (base_words + tbl_words * constant(curve, "LADDER_THREADS")) <= 48 * 1024
     assert "cudaFuncSetAttribute" not in curve
+
+
+def test_region_sum_shared_memory_needs_no_opt_in():
+    """region_sum keeps one point (4 coordinates of 10 words) per thread in
+    dynamic shared memory: 256 threads, 40 KB, under the 48 KB a launch may
+    take without cudaFuncSetAttribute."""
+    msm = (CSRC / "msm_kernels.cu").read_text()
+    assert "constexpr int SUM_SMEM_WORDS = 4 * NL * SUM_THREADS;" in msm
+    sum_threads = (1 << (constant(msm, "C_BITS") - 1)) // 2
+    assert sum_threads == 256
+    assert 4 * (4 * 10 * sum_threads) <= 48 * 1024
+    assert "cudaFuncSetAttribute(" not in msm  # the source names it only in a comment

@@ -243,10 +243,10 @@ def test_weighted_lanes_and_window_sums_match_exact_emulation(batch):
     want_w, want_regions, want_total = emulate(
         batch["items"], batch["idx"].numpy(), batch["neg"].numpy(), prep["weights"])
     assert same_points(weighted, want_w)
-    win_sums = M._region_tree_sum(weighted)
+    win_sums = M.region_tree_sum(weighted)
     assert win_sums[0].shape == (F.NLIMBS, rlc.N_REGIONS)
     assert same_points(win_sums, want_regions)
-    msm = M._window_combine(win_sums)
+    msm = M.window_combine(win_sums)
     assert same_points(msm, [want_total])
     # and the layout satisfies the RLC equation
     total = C.add(msm, C.fixed_base(torch.from_numpy(prep["c_digits"])))
