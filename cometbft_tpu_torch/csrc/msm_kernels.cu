@@ -1,31 +1,40 @@
 // Fused bucket accumulation and per-lane weighting of the RLC/MSM route,
-// one bucket lane per thread.
+// one bucket lane per group of four threads.
 //
 // accum_weight_kernel replaces cometbft_tpu/ops/msm.py:_accum_weight_kernel
 // (launched by _accumulate_weighted_pallas, reached through rlc_verify).
 // For each of the WK bucket lanes it folds S gathered affine niels points
-// into an extended accumulator (curve.madd, 7 products a round), then
-// multiplies the accumulator by the lane's bucket weight w < 2^10: the top
-// bit selects it or the identity, and 9 rounds of dbl, add and a select
-// follow (the reference's _finish). Padded rounds gather the identity
-// sentinel and are applied like any other: they leave the point but scale
-// its coordinates, so the output agrees with the plain version
+// into an extended accumulator (curve.madd), then multiplies the
+// accumulator by the lane's bucket weight w < 2^10: the top bit selects
+// it or the identity, and 9 rounds of dbl, add and a select follow (the
+// reference's _finish). Padded rounds gather the identity sentinel and
+// are applied like any other: they leave the point but scale its
+// coordinates, so the output agrees with the plain version
 // (ops/msm.py accumulate_weighted_plain) exactly after canonicalization.
 //
 //   Bound on the H100: operations. 7 S + 153 field products per lane (601
 //   at S = 64) against 264 B of table and 8 B of gather row read per
 //   round, 4 B of weight and 352 B of output; the niels table (M points)
 //   is read at random but fits in L2 (5.4 MB for a 10,240 bucket).
-//   Design: the accumulator stays in registers across the S rounds (the
-//   TPU kernel carries it in VMEM scratch across its grid's S axis, and
-//   materializes the gathered (S * 72, WK) stream with XLA first; neither
-//   is needed here). Each thread reads its own gather index per round
-//   (one coalesced row load for the warp) and the 66 words of its point
-//   from a point-major (M, 3, 22) table, which the wrapper lays out so
-//   that one point is 264 contiguous bytes. The sign is applied the
-//   reference's way: swap Y+X and Y-X and negate 2dT under a mask. One
-//   thread per lane gives 19,968 threads, 156 blocks of 128 on 132 SMs:
-//   occupancy, not the multiplies, is expected to limit it.
+//   Design: four threads per lane with the ladder's 4-way formulas
+//   (edwards25519.cuh, grp_*), so a round is 2 product stages of one
+//   product per thread, not 7 products in a row, and WK = 19,968 lanes
+//   give 79,872 threads: about 605 an SM, all resident at once at 92
+//   registers, where one thread a lane gave the 132 SMs 156 blocks, two
+//   on 24 of them. Each round is a grp_add of the gathered point, each
+//   thread multiplying by its own niels component (Y-X on thread 0, the
+//   constant 2Z2 = 2 on thread 2, Y+X and 2dT on threads 1 and 3 by turns
+//   as the layout alternates), the sign a coefficient of grp_add, never
+//   an address. The thread reads its gather row and its 88-byte component
+//   (of the point-major (M, 3, 22) table, which the wrapper lays out so
+//   that one point is 264 contiguous bytes) when the round starts: with
+//   some 19 warps an SM the others hide the latency, and loading them a
+//   round ahead, in registers or by cp.async into shared memory, measured
+//   slower (PERF.md). The weight step takes the accumulator's niels
+//   form once (grp_niels) and then runs grp_dbl and grp_add a bit, the
+//   sum brought back to layout A by one shuffle so that the select
+//   compares like with like. Every shuffle needs the whole warp, so
+//   threads past the last lane compute it again and store nothing.
 //
 // region_sum_kernel and window_combine_kernel replace the field products
 // that the reference's XLA tail runs after the weighted lanes:
@@ -75,7 +84,11 @@ using namespace f25519;
 
 namespace {
 
-constexpr int THREADS = 128;
+// accum_weight: 16 lanes of LANE_THREADS threads a block, and at least
+// ACCUM_MIN_BLOCKS blocks an SM (a register budget for ptxas), both chosen
+// by timing (tools/kernel_sweep.py, PERF.md)
+constexpr int ACCUM_THREADS = 64;
+constexpr int ACCUM_MIN_BLOCKS = 1;
 constexpr int C_BITS = 10;
 constexpr int NIELS_WORDS = 3 * NLIMBS12;  // one point of the (M, 3, 22) table
 
@@ -93,44 +106,76 @@ __constant__ int REGION_DBL[N_REGIONS] = {0,  10, 10, 10, 10, 10, 10, 10, 10, 10
                                           0,  10, 0,  10, 0,  10, 0,  10, 0,  10,
                                           0,  10, 0,  10, 0,  10, 0,  10, 0};
 
-__global__ void __launch_bounds__(THREADS)
+// Component `role` (Y+X, Y-X or 2dT: words 0, 22 and 44; not Z2) of point
+// j of the (M, 3, 22) niels table, as its 12-bit limbs, loaded 8 bytes at
+// a time (a point is 264 bytes, so every component starts on an 8-byte
+// boundary).
+__device__ __forceinline__ void load_component(int32_t raw[NLIMBS12],
+                                               const int32_t* __restrict__ niels, int64_t j,
+                                               int role) {
+  const int word = role == YPX ? 0 : (role == YMX ? NLIMBS12 : 2 * NLIMBS12);
+  const int2* src = reinterpret_cast<const int2*>(niels + j * NIELS_WORDS + word);
+#pragma unroll
+  for (int k = 0; k < NLIMBS12 / 2; ++k) {
+    const int2 v = __ldg(src + k);
+    raw[2 * k] = v.x;
+    raw[2 * k + 1] = v.y;
+  }
+}
+
+// Gather row s of this lane: the point's index, clamped into [0, M) for
+// memory safety only (the layout never gives one outside).
+__device__ __forceinline__ int64_t gather_index(const int32_t* __restrict__ idx, int64_t s,
+                                                int64_t lane, int64_t lanes, int64_t points) {
+  const int64_t j = idx[s * lanes + lane];
+  return j < 0 ? 0 : (j >= points ? points - 1 : j);
+}
+
+__global__ void __launch_bounds__(ACCUM_THREADS, ACCUM_MIN_BLOCKS)
     accum_weight_kernel(const int32_t* __restrict__ niels, const int32_t* __restrict__ idx,
                         const int32_t* __restrict__ neg, const int32_t* __restrict__ weights,
                         int32_t* __restrict__ out, int64_t points, int64_t rounds,
                         int64_t lanes) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+  const int q = threadIdx.x % LANE_THREADS;
+  const int64_t my_lane = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / LANE_THREADS;
+  const bool live = my_lane < lanes;
+  const int64_t lane = live ? my_lane : lanes - 1;
 
-  ge acc = ge_identity();
+  // Thread 2 multiplies by 2Z2 = 2 and loads nothing; the others load
+  // their component under a predicate and every thread converts `raw`,
+  // with no branch (a branch around the load and conversion ran 1.5%
+  // slower).
+  const bool reads = niels_role(q, 0) != Z2;
+  int32_t raw[NLIMBS12] = {};
+  fe r = fe_small((q == 1 || q == 2) ? 1u : 0u);  // the identity, layout A
+  int lay = 0;
 #pragma unroll 1
   for (int64_t s = 0; s < rounds; ++s) {
-    int64_t j = idx[s * lanes + lane];
-    j = j < 0 ? 0 : (j >= points ? points - 1 : j);  // memory safety only: the layout never
-                                                      // gives an index outside [0, M)
-    const bool negd = neg[s * lanes + lane] != 0;
-    const int32_t* p = niels + j * NIELS_WORDS;
-    const fe ypx = fe_from_limbs12(p, 1);
-    const fe ymx = fe_from_limbs12(p + NLIMBS12, 1);
-    const fe t2d = fe_from_limbs12(p + 2 * NLIMBS12, 1);
-    ge_madd(acc, fe_select(negd, ymx, ypx), fe_select(negd, ypx, ymx),
-            fe_select(negd, fe_neg(t2d), t2d));
+    const int64_t j = gather_index(idx, s, lane, lanes, points);
+    if (reads) load_component(raw, niels, j, niels_role(q, lay));
+    const uint32_t sign = (uint32_t)(neg[s * lanes + lane] != 0);
+    const fe opnd = reads ? fe_from_limbs12(raw, 1) : fe_small(2);
+    r = grp_add(r, q, lay, opnd, sign);
+    lay ^= 1;
   }
 
+  // [w] acc: the accumulator in layout A (an odd S leaves it in B), its
+  // niels form with layout A's roles (grp_niels gives layout B's: 2dT
+  // and Y+X swap), then the double-and-add, each sum back in layout A.
+  const int swap_b = nib(0x1230u, q);
+  const fe acc = lay ? shfl4(r, swap_b) : r;
+  const fe acc_niels = shfl4(grp_niels(acc, q, 0), swap_b);
   const uint32_t w = (uint32_t)weights[lane];
-  ge r = ge_select(((w >> (C_BITS - 1)) & 1u) != 0, acc, ge_identity());
+  r = fe_select(((w >> (C_BITS - 1)) & 1u) != 0, acc, fe_small((q == 1 || q == 2) ? 1u : 0u));
 #pragma unroll 1
   for (int bit = C_BITS - 2; bit >= 0; --bit) {
-    ge_dbl(r, true);
-    ge radd = r;
-    ge_add(radd, acc);
-    r = ge_select(((w >> bit) & 1u) != 0, radd, r);
+    r = grp_dbl(r, q, 0);
+    const fe radd = shfl4(grp_add(r, q, 0, acc_niels, 0u), swap_b);
+    r = fe_select(((w >> bit) & 1u) != 0, radd, r);
   }
 
-  const int64_t plane = (int64_t)NLIMBS12 * lanes;
-  fe_to_limbs12(out + lane, lanes, r.X);
-  fe_to_limbs12(out + plane + lane, lanes, r.Y);
-  fe_to_limbs12(out + 2 * plane + lane, lanes, r.Z);
-  fe_to_limbs12(out + 3 * plane + lane, lanes, r.T);
+  // thread q holds coordinate q (X, Y, Z, T)
+  if (live) fe_to_limbs12(out + q * (int64_t)NLIMBS12 * lanes + lane, lanes, r);
 }
 
 // Extended point `lane` of a (4, 22, lanes) stack of limb planes.
@@ -235,8 +280,8 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
 extern "C" int accum_weight_launch(const void* niels, const void* idx, const void* neg,
                                    const void* weights, void* out, int64_t points, int64_t rounds,
                                    int64_t lanes, void* stream) {
-  const unsigned blocks = (unsigned)((lanes + THREADS - 1) / THREADS);
-  accum_weight_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((lanes * LANE_THREADS + ACCUM_THREADS - 1) / ACCUM_THREADS);
+  accum_weight_kernel<<<blocks, ACCUM_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)niels, (const int32_t*)idx, (const int32_t*)neg, (const int32_t*)weights,
       (int32_t*)out, points, rounds, lanes);
   return (int)cudaGetLastError();

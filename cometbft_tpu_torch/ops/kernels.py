@@ -100,17 +100,16 @@ def _nvcc() -> str:
     return found
 
 
-def _compile_all(out_dir: Path) -> None:
-    """One nvcc per missing library, all running at once."""
-    todo = [n for n in LIBRARIES if not (out_dir / f"{n}.so").is_file()]
-    if not todo:
-        return
+def compile_sources(jobs: dict[str, tuple[Path, Path]], out_dir: Path) -> None:
+    """One nvcc per job {name: (source, include directory)}, all running
+    at once, into `out_dir/<name>.so`, each `ptxas -v` log beside it as
+    `<name>.ptxas.txt`; raises if any build fails."""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in todo:
+    for name, (src, include) in jobs.items():
         tmp = out_dir / f"{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(include), "-o", str(tmp), str(src)]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     errors = []
@@ -124,6 +123,13 @@ def _compile_all(out_dir: Path) -> None:
             os.replace(tmp, out_dir / f"{name}.so")
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+
+
+def _compile_all(out_dir: Path) -> None:
+    """Each missing library of LIBRARIES, from CSRC."""
+    todo = [n for n in LIBRARIES if not (out_dir / f"{n}.so").is_file()]
+    if todo:
+        compile_sources({n: (CSRC / f"{n}.cu", CSRC) for n in todo}, out_dir)
 
 
 def build() -> dict[str, ctypes.CDLL]:
@@ -151,6 +157,20 @@ def ptxas_report() -> dict[str, str]:
         for n in LIBRARIES
         if (out_dir / f"{n}.ptxas.txt").is_file()
     }
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers and spill-store bytes of the kernel whose mangled name
+    holds `kernel`, from an `nvcc -Xptxas -v` log; {} when it is absent."""
+    out, inside = {}, False
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            inside = kernel in ln
+        elif inside and "spill stores" in ln:
+            out["spill_bytes"] = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif inside and "Used" in ln and "registers" in ln:
+            out["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def _fn(lib: str, name: str):

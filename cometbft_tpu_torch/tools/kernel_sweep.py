@@ -1,18 +1,35 @@
 #!/usr/bin/env python3
-"""Time the ladder and decompress kernels over batch sizes, and count the
-instructions of the ladder's loops.
+"""Time the ladder and decompress kernels over batch sizes, time
+`accum_weight` over launch shapes, and count the instructions of their
+loops.
 
-    python3 -m cometbft_tpu_torch.tools.kernel_sweep [--sizes 2560,5120,10240,20480,40960] [--sass]
+    python3 -m cometbft_tpu_torch.tools.kernel_sweep [--sizes 2560,5120,10240,20480,40960]
+        [--accum-shapes 32x1,64x1,128x1,64x6] [--accum-source PATH ...] [--sass]
 
 For each batch size B: `ladder_sub_mul8` and `decompress` on random
 points and digits (seeded), mean milliseconds per launch by CUDA events
 over back-to-back launches. Time against B says where a kernel stands:
 proportional once the card is full (throughput), flat while it is not
 (latency). To time a parent commit, run this script in a `git archive`
-of it. `--sass` disassembles the built ladder (`cuobjdump -sass`) and prints the
-opcode counts of each loop body (a backward branch and its target) and
-of the whole kernel. The last line is one JSON object with every number,
-the card's name and power limit. Needs one CUDA GPU and nvcc.
+of it.
+
+`accum_weight` at the RLC route's shape (WK = 19,968 bucket lanes, S =
+64 rounds, M = 20,481 table points; random table limbs, gather rows and
+weights, seeded): `csrc/msm_kernels.cu` is built once per launch shape
+TxB of `--accum-shapes` (T threads a block, `__launch_bounds__` minimum
+of B blocks an SM; the source's ACCUM_THREADS and ACCUM_MIN_BLOCKS
+rewritten), and once as it is from each `--accum-source` (another
+version of the file, e.g. a parent commit's, with the same launcher).
+Each build's registers and spill come from `ptxas -v`; its resident
+threads an SM and waves follow from them; its output must equal the
+package build's. The builds are timed in turns, 3 rounds of 20
+launches, and the table prints each round's mean milliseconds.
+
+`--sass` disassembles the package's ladder and `accum_weight`
+(`cuobjdump -sass`) and prints the opcode counts of each loop body (a
+backward branch and its target) and of the whole kernel. The last line
+is one JSON object with every number, the card's name and power limit.
+Needs one CUDA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -53,9 +70,59 @@ def loop_histograms(sass: str, kernel: str) -> dict:
             for k, c in out.items()}
 
 
+# Hopper's per-SM limits: 65,536 registers given out to a warp in units
+# of 256, 64 warps, 32 blocks
+SM_REGISTERS, REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
+
+
+def resident_threads(threads: int, regs: int) -> int:
+    """Threads an SM holds at once of a kernel with `regs` registers a
+    thread in blocks of `threads` (no shared memory)."""
+    warps = threads // 32
+    per_warp = -(-regs * 32 // REG_UNIT) * REG_UNIT
+    blocks = min(SM_BLOCKS, SM_WARPS // warps, SM_REGISTERS // (per_warp * warps))
+    return blocks * threads
+
+
+def build_accum_variants(K, shapes, sources, out_dir: Path) -> dict:
+    """{label: (launcher, ptxas usage)}: msm_kernels.cu per launch shape
+    "TxB", and each other source as it is (built against the headers
+    beside it), one nvcc each, all at once."""
+    import ctypes
+
+    src = (K.CSRC / "msm_kernels.cu").read_text()
+    jobs = {}
+    for shape in shapes:
+        threads, min_blocks = (int(x) for x in shape.split("x"))
+        text, n = re.subn(r"constexpr int ACCUM_THREADS = \d+;",
+                          f"constexpr int ACCUM_THREADS = {threads};", src)
+        text, m = re.subn(r"constexpr int ACCUM_MIN_BLOCKS = \d+;",
+                          f"constexpr int ACCUM_MIN_BLOCKS = {min_blocks};", text)
+        if (n, m) != (1, 1):
+            raise RuntimeError("msm_kernels.cu has no ACCUM_THREADS / ACCUM_MIN_BLOCKS to set")
+        variant = out_dir / f"msm_kernels_{shape}.cu"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        variant.write_text(text)
+        jobs[shape] = (variant, K.CSRC)
+    for i, path in enumerate(sources):
+        jobs[f"source{i}"] = (Path(path), Path(path).resolve().parent)
+    K.compile_sources(jobs, out_dir)
+    out = {}
+    for label in jobs:
+        f = ctypes.CDLL(str(out_dir / f"{label}.so")).accum_weight_launch
+        f.argtypes = K._SIGNATURES["msm_kernels"]["accum_weight_launch"]
+        f.restype = ctypes.c_int
+        log = (out_dir / f"{label}.ptxas.txt").read_text()
+        out[label] = (f, K.ptxas_usage(log, "accum_weight_kernel"))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="2560,5120,10240,20480,40960")
+    ap.add_argument("--accum-shapes", default="32x1,64x1,128x1,64x6,64x8,128x3,128x4")
+    ap.add_argument("--accum-source", action="append", default=[],
+                    help="another msm_kernels.cu to time as it is (repeatable)")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -105,16 +172,77 @@ def main(argv=None) -> int:
         result[f"decompress_ms_B{b}"] = ms(lambda: K.decompress(yb, sb), 50)
         print(f"B={b}: ladder_sub_mul8 {result[f'ladder_sub_mul8_ms_B{b}']:.4f} ms, "
               f"decompress {result[f'decompress_ms_B{b}']:.4f} ms", flush=True)
+    del a4, r4, sd, kd, encs, sign, y
+    result["accum_weight"] = sweep_accum(K, args, rng, dev, ms)
     if args.sass:
         cuobjdump = Path(K._nvcc()).parent / "cuobjdump"
-        sass = subprocess.run([str(cuobjdump), "-sass", str(K.build_dir() / "curve_kernels.so")],
-                              capture_output=True, text=True, check=True).stdout
-        result["sass_ladder"] = loop_histograms(sass, "ladder_sub_mul8_kernel")
-        for name, h in result["sass_ladder"].items():
-            print(f"sass {name}: {h['instructions']} instructions, {h['top']}", flush=True)
+        for lib, kernel, key in (("curve_kernels", "ladder_sub_mul8_kernel", "sass_ladder"),
+                                 ("msm_kernels", "accum_weight_kernel", "sass_accum_weight")):
+            sass = subprocess.run([str(cuobjdump), "-sass", str(K.build_dir() / f"{lib}.so")],
+                                  capture_output=True, text=True, check=True).stdout
+            result[key] = loop_histograms(sass, kernel)
+            for name, h in result[key].items():
+                print(f"{key} {name}: {h['instructions']} instructions, {h['top']}", flush=True)
     print(result["card"])
     print(json.dumps(result))
     return 0
+
+
+def sweep_accum(K, args, rng, dev, ms) -> dict:
+    """accum_weight at WK = 19,968, S = 64 over the launch shapes and
+    sources of the arguments, in turns; prints the table."""
+    import numpy as np
+    import torch
+
+    lanes, rounds, points = 19_968, 64, 2 * 10_240 + 1
+    niels = tuple(torch.from_numpy(rng.integers(0, 4096, (22, points), dtype=np.int32)).to(dev)
+                  for _ in range(3))
+    idx = torch.from_numpy(rng.integers(0, points, (rounds, lanes), dtype=np.int32)).to(dev)
+    neg = torch.from_numpy(rng.integers(0, 2, (rounds, lanes), dtype=np.int32)).to(dev)
+    weights = torch.from_numpy(rng.integers(0, 1024, lanes, dtype=np.int32)).to(dev)
+    want = K.accum_weight(niels, idx, neg, weights)
+    table = torch.stack(niels).permute(2, 0, 1).contiguous()  # as the wrapper lays it out
+    shapes = [x for x in args.accum_shapes.split(",") if x]
+    variants = build_accum_variants(K, shapes, args.accum_source,
+                                    K.BUILD_ROOT / "sweep" / K.build_dir().name)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(want)
+
+    def launcher(f):
+        def go():
+            rc = f(table.data_ptr(), idx.data_ptr(), neg.data_ptr(), weights.data_ptr(),
+                   out.data_ptr(), points, rounds, lanes, stream)
+            if rc != 0:
+                raise RuntimeError(f"accum_weight launch failed: cudaError {rc}")
+        return go
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (f, ptx) in variants.items():
+        out.fill_(-1)
+        launcher(f)()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"accum_weight variant {label} disagrees with the package build")
+        row = {"label": label, **ptx, "ms": []}
+        if "x" in label:
+            threads = int(label.split("x")[0])
+            row["resident_threads_per_sm"] = resident_threads(threads, ptx["registers"])
+            row["waves"] = lanes * 4 / (sms * row["resident_threads_per_sm"])  # 4 threads a lane
+        else:
+            row["source"] = args.accum_source[int(label[len("source"):])]
+        rows[label] = row
+    for _ in range(3):
+        for label, (f, _) in variants.items():
+            rows[label]["ms"].append(ms(launcher(f), 20))
+    print(f"accum_weight, WK = {lanes}, S = {rounds}, M = {points}: "
+          "shape or source | registers | spill B | threads/SM | waves | ms (3 rounds)")
+    for row in rows.values():
+        print(f"  {row.get('source', row['label'])} | {row.get('registers')} | "
+              f"{row.get('spill_bytes')} | {row.get('resident_threads_per_sm', '-')} | "
+              + (f"{row['waves']:.3f}" if "waves" in row else "-") + " | "
+              + ", ".join(f"{t:.4f}" for t in row["ms"]), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -196,6 +196,29 @@ def test_accum_weight_matches_plain(dev):
     assert all(torch.equal(g, F.freeze(g)) for g in got)  # canonical output
 
 
+@pytest.mark.parametrize("n", [1, 3, 70, 1027])
+def test_accum_weight_ragged_lanes(dev, n):
+    """Partial thread groups and partial blocks: every lane matches the
+    plain version, and the same lanes of a 2,048-lane launch, at an odd S."""
+    from cometbft_tpu_torch.ops import msm as M
+
+    rng = np.random.default_rng(20 + n)
+    lanes, rounds, points = 2048, 9, 500
+    pts = C.fixed_base(torch.from_numpy(
+        rng.integers(-8, 8, (64, points), dtype=np.int32)).to(dev))
+    niels = tuple(c.contiguous() for c in C.to_niels(pts)[:3])
+    idx = torch.from_numpy(rng.integers(0, points, (rounds, lanes), dtype=np.int32)).to(dev)
+    neg = torch.from_numpy(rng.integers(0, 2, (rounds, lanes), dtype=np.int32)).to(dev)
+    weights = torch.from_numpy(rng.integers(0, 1 << M.C_BITS, lanes, dtype=np.int32)).to(dev)
+    head = lambda t: t[..., :n].contiguous()
+    before = K.launches["accum_weight"]
+    got = K.accum_weight(niels, head(idx), head(neg), head(weights))
+    assert K.launches["accum_weight"] == before + 1
+    want = M.accumulate_weighted_plain(niels, head(idx), head(neg) != 0, head(weights))
+    assert all(frozen_equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(got, K.accum_weight(niels, idx, neg, weights)[..., :n])
+
+
 def group_points(regions, dev):
     """(4, 22, regions * 512) points [s]B on the card (random digits), every
     37th lane the identity, as a weight-0 bucket lane holds it."""

@@ -8,11 +8,12 @@ each CUDA thread of a block is a user-space context (`ucontext`),
 exchange through an array between two such barriers, shared memory one
 array per block. That runs the four-threads-per-lane ladder (its
 shuffles, layouts, table columns and signed-digit handling), `decompress`,
-the field products, the RLC tail's `region_sum` (one block per region,
-partial sums in shared memory) and `window_combine` (one lane on four
-threads) on small inputs, which must agree with the plain PyTorch versions
-after `freeze`. Partial thread groups and partial blocks are in every
-ladder case. Skips without g++.
+the field products, the RLC route's `accum_weight` (four threads a lane),
+the RLC tail's `region_sum` (one block per region, partial sums in shared
+memory) and `window_combine` (one lane on four threads) on small inputs,
+which must agree with the plain PyTorch versions after `freeze`. Partial
+thread groups and partial blocks are in every ladder and `accum_weight`
+case. Skips without g++.
 """
 
 import shutil
@@ -45,7 +46,9 @@ SHIM = r"""
 #define __noinline__
 #define __constant__
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+struct int2 { int x, y; };
+template <typename T> inline T __ldg(const T* p) { return *p; }
 // The threads of a block are user-space contexts run round-robin: each
 // runs until it reaches a barrier, then hands over to the next live one,
 // so a barrier holds once the turn comes back.
@@ -171,6 +174,21 @@ int main(int argc, char** argv) {
 int main(int argc, char** argv) {
   const std::string kind = argv[1], d = argv[3];
   const long regions = atol(argv[2]);
+  if (kind == "accum_weight") {  // argv[2]: lanes; dims: points, rounds
+    const long lanes = regions;
+    auto dims = rd(d + "/dims", 2);
+    const long points = dims[0], rounds = dims[1];
+    auto niels = rd(d + "/niels", points * NIELS_WORDS);
+    auto idx = rd(d + "/idx", rounds * lanes), neg = rd(d + "/neg", rounds * lanes);
+    auto weights = rd(d + "/weights", lanes);
+    std::vector<int32_t> out(4 * 22 * lanes, -1);
+    emu_launch((lanes * LANE_THREADS + ACCUM_THREADS - 1) / ACCUM_THREADS, ACCUM_THREADS, 0, [&] {
+      accum_weight_kernel(niels.data(), idx.data(), neg.data(), weights.data(), out.data(), points,
+                          rounds, lanes);
+    });
+    wr(d + "/out", out);
+    return 0;
+  }
   std::vector<int32_t> out(4 * 22 * (kind == "region_sum" ? regions : 1), -1);
   if (kind == "region_sum") {
     auto pts = rd(d + "/pts", 4 * 22 * regions * K_BUCKETS);
@@ -338,5 +356,46 @@ def test_window_combine_matches_plain(host_build, tmp_path):
     out = run(host_build["msm_kernels"], "window_combine", M.N_REGIONS, {"sums": sums},
               [("out", (4, F.NLIMBS, 1))], tmp_path)[0]
     want = M.window_combine_plain(torch.from_numpy(sums))
+    assert all(frozen_equal(g, w) for g, w in zip(out, want))
+    assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))
+
+
+def affine_niels(pt):
+    """(Y+X, Y-X, 2dT) of an extended point, as three lists of 22 limbs of
+    its affine form (Z = 1), as decompression leaves the points of the
+    RLC table."""
+    x, y = ref._ext_to_affine(pt)
+    return [F.from_int((y + x) % F.P_INT), F.from_int((y - x) % F.P_INT),
+            F.from_int(2 * ref.D * x * y % F.P_INT)]
+
+
+@pytest.mark.parametrize("lanes, rounds", [(21, 8), (13, 5)])
+def test_accum_weight_matches_plain(host_build, tmp_path, lanes, rounds):
+    """A table of random points with the identity and an 8-torsion point
+    among them and the identity sentinel last; gather rows with negated
+    rounds and padding (the sentinel) at the end of each lane, one lane all
+    padding; weights 0, 1, 511, 512 and 1,023 in the first lanes. 21 lanes
+    end in a partial block and a partial warp, 13 in a partial warp, at
+    S = 8 and an odd S."""
+    rng = np.random.default_rng(40 + rounds)
+    pts = [ref._ext_scalar_mul(int(rng.integers(1, 2**62)), ref.B_POINT) for _ in range(9)]
+    pts += [ref._IDENT, torsion_point(), ref._IDENT]  # the last one is the sentinel
+    cols = [torch.from_numpy(np.stack(c, axis=1)) for c in zip(*map(affine_niels, pts))]
+    points, sentinel = len(pts), len(pts) - 1
+    idx = rng.integers(0, points, (rounds, lanes), dtype=np.int32)
+    neg = rng.integers(0, 2, (rounds, lanes), dtype=np.int32)
+    counts = rng.integers(0, rounds + 1, lanes)
+    counts[:3] = (rounds, 0, rounds - 1)
+    pad = np.arange(rounds)[:, None] >= counts[None, :]
+    idx[pad], neg[pad] = sentinel, 0
+    weights = rng.integers(0, 1 << M.C_BITS, lanes, dtype=np.int32)
+    weights[:5] = (0, 1, 511, 512, 1023)
+    table = torch.stack(cols).permute(2, 0, 1).contiguous()  # the wrapper's layout
+    out = run(host_build["msm_kernels"], "accum_weight", lanes,
+              {"dims": np.array([points, rounds]), "niels": table.numpy(), "idx": idx,
+               "neg": neg, "weights": weights},
+              [("out", (4, F.NLIMBS, lanes))], tmp_path)[0]
+    want = M.accumulate_weighted_plain(tuple(cols), torch.from_numpy(idx),
+                                       torch.from_numpy(neg != 0), torch.from_numpy(weights))
     assert all(frozen_equal(g, w) for g, w in zip(out, want))
     assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))

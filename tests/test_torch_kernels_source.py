@@ -84,10 +84,11 @@ def constant(src: str, name: str) -> int:
 
 def test_launch_shapes_match_the_sources():
     """The launchers in csrc/ use the threads-per-lane and block constants
-    their kernels are bounded by; a ladder block is whole warps of whole
-    four-thread groups, so a group never straddles two warps and every
-    shuffle has all 32 threads; and the ragged batches of chip_smoke.py
-    and the card tests end in a partial block of each kernel."""
+    their kernels are bounded by; a ladder or `accum_weight` block is whole
+    warps of whole four-thread groups, so a group never straddles two warps
+    and every shuffle has all 32 threads; and the ragged batches of
+    chip_smoke.py and the card tests end in a partial block of each
+    kernel."""
     curve = (CSRC / "curve_kernels.cu").read_text()
     lane_threads = constant((CSRC / "edwards25519.cuh").read_text(), "LANE_THREADS")
     ladder = constant(curve, "LADDER_THREADS")
@@ -102,7 +103,12 @@ def test_launch_shapes_match_the_sources():
     assert constant(field, "THREADS") == 64
     assert field.count("<<<blocks_for(batch), THREADS, 0,") == 2
     msm = (CSRC / "msm_kernels.cu").read_text()
-    assert "__launch_bounds__(THREADS)" in msm and "<<<blocks, THREADS, 0," in msm
+    # accum_weight: four threads a lane, whole warps a block
+    accum = constant(msm, "ACCUM_THREADS")
+    assert accum % 32 == 0 and constant(msm, "ACCUM_MIN_BLOCKS") >= 1
+    assert "__launch_bounds__(ACCUM_THREADS, ACCUM_MIN_BLOCKS)" in msm
+    assert ("(lanes * LANE_THREADS + ACCUM_THREADS - 1) / ACCUM_THREADS" in msm
+            and "<<<blocks, ACCUM_THREADS, 0," in msm)
     # region_sum: one block per region, one first-level addition per
     # thread; window_combine: one warp, so every shuffle has 32 threads
     assert "constexpr int SUM_THREADS = K_BUCKETS / 2;" in msm
@@ -115,9 +121,10 @@ def test_launch_shapes_match_the_sources():
     check = int(re.search(r"^LADDER_CHECK_LANES = ([\d_]+)", smoke, re.M).group(1))
     assert re.search(r"^RAGGED_LANES = \(1, 3, 70, LADDER_CHECK_LANES\)", smoke, re.M)
     card = (ROOT / "tests" / "test_torch_kernels.py").read_text()
-    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 2
+    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 3
     for n in (3, 70, check):
         assert n % (ladder // lane_threads) and n % decompress, n
+        assert n % (accum // lane_threads), n
 
 
 def test_ladder_shared_memory_needs_no_opt_in():
@@ -145,3 +152,20 @@ def test_region_sum_shared_memory_needs_no_opt_in():
     assert sum_threads == 256
     assert 4 * (4 * 10 * sum_threads) <= 48 * 1024
     assert "cudaFuncSetAttribute(" not in msm  # the source names it only in a comment
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """`kernels.ptxas_usage` (read by chip_smoke.py and the kernel sweep)
+    takes each kernel's own lines of an `nvcc -Xptxas -v` log."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN2_19accum_weight_kernelEPKi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN2_19accum_weight_kernelEPKi",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 92 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN2_17region_sum_kernelEPKi' for 'sm_90a'",
+        "    8 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+    ])
+    assert K.ptxas_usage(log, "accum_weight_kernel") == {"spill_bytes": 0, "registers": 92}
+    assert K.ptxas_usage(log, "region_sum_kernel") == {"spill_bytes": 12, "registers": 255}
+    assert K.ptxas_usage(log, "window_combine_kernel") == {}
