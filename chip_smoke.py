@@ -258,13 +258,14 @@ def submit_through_rlc(cols, device, on_decline, tries: int = 5):
     """Submit a commit with the RLC route pinned until its layout accepts
     it. The layout draws z afresh on each submit and declines about one
     10,000-signature commit in sixteen (PERF.md, section 6); the ladder
-    then verifies it, and `on_decline` gets that pending result."""
+    then verifies it, and `on_decline` gets that pending result. Returns
+    the RLC pending result and the number of submits it took."""
     from cometbft_tpu_torch.crypto.ed25519 import PendingRLC
 
-    for _ in range(tries):
+    for submits in range(1, tries + 1):
         pending = submit_commit(cols, device)
         if isinstance(pending, PendingRLC):
-            return pending
+            return pending, submits
         on_decline(pending)
     raise AssertionError(f"the RLC layout declined the commit {tries} times in a row")
 
@@ -692,7 +693,7 @@ def main(argv=None) -> int:
     try:
         rlc_cold_s, _ = pipeline()
         rlc_warm_s, rlc_warm_submit_s = pipeline()
-        bad = submit_through_rlc(
+        bad, bad_submits = submit_through_rlc(
             bad_cols, dev, lambda p: check_bad_lanes("RLC route, declined to the ladder", p))
         if bool(bad._all_ok.item()):
             raise AssertionError("bad-lane commit: the RLC all-ok scalar is not false")
@@ -717,7 +718,7 @@ def main(argv=None) -> int:
         f"{rlc_cold_s:.3f} s, warm {rlc_warm_s:.3f} s (submits {rlc_warm_submit_s:.3f} s) -> "
         f"{rlc_sigs_per_s:.0f} sigs/s on {card}")
     log(f"sigs/s, warm, same call: ladder {sigs_per_s:.0f}, RLC {rlc_sigs_per_s:.0f} [{card}]")
-    rlc_commits = 2 * PIPELINE_DEPTH + 1
+    rlc_commits = 2 * PIPELINE_DEPTH + bad_submits
     for name in SOURCES:
         kern[name]["launches"] = counts[name] + rlc_counts[name]
         kern[name]["launches_by_route"] = {"ladder": counts[name], "rlc": rlc_counts[name]}

@@ -100,16 +100,16 @@ def _nvcc() -> str:
     return found
 
 
-def compile_sources(jobs: dict[str, tuple[Path, Path]], out_dir: Path) -> None:
-    """One nvcc per job {name: (source, include directory)}, all running
-    at once, into `out_dir/<name>.so`, each `ptxas -v` log beside it as
-    `<name>.ptxas.txt`; raises if any build fails."""
+def compile_sources(sources: dict[str, Path], out_dir: Path) -> None:
+    """One nvcc per source {name: path}, built against CSRC's headers,
+    all running at once, into `out_dir/<name>.so`, each `ptxas -v` log
+    beside it as `<name>.ptxas.txt`; raises if any build fails."""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (src, include) in jobs.items():
+    for name, src in sources.items():
         tmp = out_dir / f"{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(include), "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     errors = []
@@ -129,7 +129,7 @@ def _compile_all(out_dir: Path) -> None:
     """Each missing library of LIBRARIES, from CSRC."""
     todo = [n for n in LIBRARIES if not (out_dir / f"{n}.so").is_file()]
     if todo:
-        compile_sources({n: (CSRC / f"{n}.cu", CSRC) for n in todo}, out_dir)
+        compile_sources({n: CSRC / f"{n}.cu" for n in todo}, out_dir)
 
 
 def build() -> dict[str, ctypes.CDLL]:

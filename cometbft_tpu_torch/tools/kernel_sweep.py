@@ -4,7 +4,7 @@
 loops.
 
     python3 -m cometbft_tpu_torch.tools.kernel_sweep [--sizes 2560,5120,10240,20480,40960]
-        [--accum-shapes 32x1,64x1,128x1,64x6] [--accum-source PATH ...] [--sass]
+        [--accum-shapes 32x1,64x1,128x1,64x0,64x6] [--sass]
 
 For each batch size B: `ladder_sub_mul8` and `decompress` on random
 points and digits (seeded), mean milliseconds per launch by CUDA events
@@ -16,14 +16,13 @@ of it.
 `accum_weight` at the RLC route's shape (WK = 19,968 bucket lanes, S =
 64 rounds, M = 20,481 table points; random table limbs, gather rows and
 weights, seeded): `csrc/msm_kernels.cu` is built once per launch shape
-TxB of `--accum-shapes` (T threads a block, `__launch_bounds__` minimum
-of B blocks an SM; the source's ACCUM_THREADS and ACCUM_MIN_BLOCKS
-rewritten), and once as it is from each `--accum-source` (another
-version of the file, e.g. a parent commit's, with the same launcher).
-Each build's registers and spill come from `ptxas -v`; its resident
-threads an SM and waves follow from them; its output must equal the
-package build's. The builds are timed in turns, 3 rounds of 20
-launches, and the table prints each round's mean milliseconds.
+TxB of `--accum-shapes`: T threads a block and a `__launch_bounds__`
+minimum of B blocks an SM, 0 for none (the one-argument form); the
+source's ACCUM_THREADS and bounds rewritten. Each build's registers and
+spill come from `ptxas -v`;
+its resident threads an SM and waves follow from them; its output must
+equal the package build's. The builds are timed in turns, 3 rounds of
+20 launches, and the table prints each round's mean milliseconds.
 
 `--sass` disassembles the package's ladder and `accum_weight`
 (`cuobjdump -sass`) and prints the opcode counts of each loop body (a
@@ -84,10 +83,9 @@ def resident_threads(threads: int, regs: int) -> int:
     return blocks * threads
 
 
-def build_accum_variants(K, shapes, sources, out_dir: Path) -> dict:
-    """{label: (launcher, ptxas usage)}: msm_kernels.cu per launch shape
-    "TxB", and each other source as it is (built against the headers
-    beside it), one nvcc each, all at once."""
+def build_accum_variants(K, shapes, out_dir: Path) -> dict:
+    """{shape: (launcher, ptxas usage)}: msm_kernels.cu per launch shape
+    "TxB", one nvcc each, all at once."""
     import ctypes
 
     src = (K.CSRC / "msm_kernels.cu").read_text()
@@ -96,16 +94,15 @@ def build_accum_variants(K, shapes, sources, out_dir: Path) -> dict:
         threads, min_blocks = (int(x) for x in shape.split("x"))
         text, n = re.subn(r"constexpr int ACCUM_THREADS = \d+;",
                           f"constexpr int ACCUM_THREADS = {threads};", src)
-        text, m = re.subn(r"constexpr int ACCUM_MIN_BLOCKS = \d+;",
-                          f"constexpr int ACCUM_MIN_BLOCKS = {min_blocks};", text)
+        bounds = f"ACCUM_THREADS, {min_blocks}" if min_blocks else "ACCUM_THREADS"
+        text, m = re.subn(r"__launch_bounds__\(ACCUM_THREADS, \d+\)",
+                          f"__launch_bounds__({bounds})", text)
         if (n, m) != (1, 1):
-            raise RuntimeError("msm_kernels.cu has no ACCUM_THREADS / ACCUM_MIN_BLOCKS to set")
+            raise RuntimeError("msm_kernels.cu has no ACCUM_THREADS / __launch_bounds__ to set")
         variant = out_dir / f"msm_kernels_{shape}.cu"
         out_dir.mkdir(parents=True, exist_ok=True)
         variant.write_text(text)
-        jobs[shape] = (variant, K.CSRC)
-    for i, path in enumerate(sources):
-        jobs[f"source{i}"] = (Path(path), Path(path).resolve().parent)
+        jobs[shape] = variant
     K.compile_sources(jobs, out_dir)
     out = {}
     for label in jobs:
@@ -120,9 +117,7 @@ def build_accum_variants(K, shapes, sources, out_dir: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="2560,5120,10240,20480,40960")
-    ap.add_argument("--accum-shapes", default="32x1,64x1,128x1,64x6,64x8,128x3,128x4")
-    ap.add_argument("--accum-source", action="append", default=[],
-                    help="another msm_kernels.cu to time as it is (repeatable)")
+    ap.add_argument("--accum-shapes", default="32x1,64x1,128x1,64x0,64x6,64x8,128x3,128x4")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -189,8 +184,8 @@ def main(argv=None) -> int:
 
 
 def sweep_accum(K, args, rng, dev, ms) -> dict:
-    """accum_weight at WK = 19,968, S = 64 over the launch shapes and
-    sources of the arguments, in turns; prints the table."""
+    """accum_weight at WK = 19,968, S = 64 over the launch shapes of the
+    arguments, in turns; prints the table."""
     import numpy as np
     import torch
 
@@ -203,8 +198,7 @@ def sweep_accum(K, args, rng, dev, ms) -> dict:
     want = K.accum_weight(niels, idx, neg, weights)
     table = torch.stack(niels).permute(2, 0, 1).contiguous()  # as the wrapper lays it out
     shapes = [x for x in args.accum_shapes.split(",") if x]
-    variants = build_accum_variants(K, shapes, args.accum_source,
-                                    K.BUILD_ROOT / "sweep" / K.build_dir().name)
+    variants = build_accum_variants(K, shapes, K.BUILD_ROOT / "sweep" / K.build_dir().name)
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty_like(want)
 
@@ -225,22 +219,18 @@ def sweep_accum(K, args, rng, dev, ms) -> dict:
         if not torch.equal(out, want):
             raise AssertionError(f"accum_weight variant {label} disagrees with the package build")
         row = {"label": label, **ptx, "ms": []}
-        if "x" in label:
-            threads = int(label.split("x")[0])
-            row["resident_threads_per_sm"] = resident_threads(threads, ptx["registers"])
-            row["waves"] = lanes * 4 / (sms * row["resident_threads_per_sm"])  # 4 threads a lane
-        else:
-            row["source"] = args.accum_source[int(label[len("source"):])]
+        row["resident_threads_per_sm"] = resident_threads(int(label.split("x")[0]),
+                                                          ptx["registers"])
+        row["waves"] = lanes * 4 / (sms * row["resident_threads_per_sm"])  # 4 threads a lane
         rows[label] = row
     for _ in range(3):
         for label, (f, _) in variants.items():
             rows[label]["ms"].append(ms(launcher(f), 20))
     print(f"accum_weight, WK = {lanes}, S = {rounds}, M = {points}: "
-          "shape or source | registers | spill B | threads/SM | waves | ms (3 rounds)")
+          "shape | registers | spill B | threads/SM | waves | ms (3 rounds)")
     for row in rows.values():
-        print(f"  {row.get('source', row['label'])} | {row.get('registers')} | "
-              f"{row.get('spill_bytes')} | {row.get('resident_threads_per_sm', '-')} | "
-              + (f"{row['waves']:.3f}" if "waves" in row else "-") + " | "
+        print(f"  {row['label']} | {row.get('registers')} | {row.get('spill_bytes')} | "
+              f"{row['resident_threads_per_sm']} | {row['waves']:.3f} | "
               + ", ".join(f"{t:.4f}" for t in row["ms"]), flush=True)
     return rows
 

@@ -105,8 +105,8 @@ def test_launch_shapes_match_the_sources():
     msm = (CSRC / "msm_kernels.cu").read_text()
     # accum_weight: four threads a lane, whole warps a block
     accum = constant(msm, "ACCUM_THREADS")
-    assert accum % 32 == 0 and constant(msm, "ACCUM_MIN_BLOCKS") >= 1
-    assert "__launch_bounds__(ACCUM_THREADS, ACCUM_MIN_BLOCKS)" in msm
+    assert accum % 32 == 0
+    assert "__launch_bounds__(ACCUM_THREADS, 1)" in msm
     assert ("(lanes * LANE_THREADS + ACCUM_THREADS - 1) / ACCUM_THREADS" in msm
             and "<<<blocks, ACCUM_THREADS, 0," in msm)
     # region_sum: one block per region, one first-level addition per
