@@ -30,7 +30,9 @@ and never prints its last line):
 4. the main path, two routes, each with every launch count set to 0
    just before it and read right after; a kernel of the route that was
    never launched is an error:
-   - the ladder route: two vote-shaped 10,000-signature commits
+   - the ladder route, pinned through the dispatch seam
+     (`crypto.ed25519._rlc_beats_ladder` False): two vote-shaped
+     10,000-signature commits
      generated on the card (`crypto.testgen`, through the field
      kernels), 16 of them verified through
      `crypto.batch.create_batch_verifier` -> `add_batch` -> `submit`
@@ -47,13 +49,28 @@ and never prints its last line):
      `ladder_sub_mul8` must have launched on every commit the layout
      accepted, and `fe_mul` plus `fe_sq` at most twice a commit (the
      niels forms of A and R).
-   A stage split of one warm commit of each route (host pack, H2D,
-   device, D2H) and a profile of its device kernels follow; the RLC
-   commit must run fewer than 1,000 device kernels;
-5. one JSON line `{"kernels": [...]}` with each kernel's launches,
+   Every commit of the phase has more than NATIVE_MAX signatures, so
+   none takes the native route. A stage split of one warm commit of each
+   route (host pack, H2D, device, D2H) and a profile of its device
+   kernels follow; the RLC commit must run fewer than 1,000 device
+   kernels;
+5. the native host engine (`crypto/native.py`, built with g++ from
+   `cometbft_tpu_torch/csrc/host/`): its engine, the host's CPU model and
+   core count and the RLC packer's workers; a library that did not build
+   is an error. On a 10,000-signature commit, the native `pack_rsk` rows
+   must equal the hashlib loop's and the native `prepare` layout the
+   numpy packer's (z pinned from `--seed`), each timed beside its Python
+   version; the first 150 lanes of the bad-lane commit must take the
+   native route with the exact bitmap; the native route and the ladder
+   route (through the NATIVE_MAX seam) are timed at 150, 1,024, 4,096
+   and 10,000 signatures; the dispatch model is calibrated (link probe,
+   the bucket's host packs and device halves on a throwaway batch) and
+   its pick at 10,000 is logged beside the faster route of phase 4's
+   pipelines;
+6. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (multiplies at 100 and
    squarings at 55 wide integer multiplies);
-6. the card's name and power limit, then the last line
+7. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -66,6 +83,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -83,6 +101,9 @@ RAGGED_LANES = (1, 3, 70, LADDER_CHECK_LANES)
 COMMIT_SIGS = 10_000
 PIPELINE_DEPTH = 16
 ORACLE_SAMPLE = 256
+NATIVE_SIGS = 150  # a commit the native route takes (NATIVE_MAX is 1,024)
+ROUTE_SIGS = (NATIVE_SIGS, 1_024, 4_096, COMMIT_SIGS)  # native against ladder
+ROUTE_REPS = 5
 # 32-bit integer multiplies per SM per clock on compute capability 9.0
 # (CUDA C++ Programming Guide, "Arithmetic Instructions" throughput table)
 INT32_MUL_PER_SM_CLK = 64
@@ -327,6 +348,177 @@ def products_per_lane(s_rounds: int):
 def wide_muls(products) -> int:
     """32x32->64-bit multiplies of (multiplies, squarings) field products."""
     return MULS_PER_MUL * products[0] + MULS_PER_SQ * products[1]
+
+
+def cpu_model() -> str:
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8", errors="replace") as f:
+            for ln in f:
+                if ln.startswith("model name"):
+                    return ln.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median wall milliseconds of one fn() call over `reps` calls, after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def same_layout(a, b) -> bool:
+    if a is None or b is None:
+        return a is b
+    return a["s_rounds"] == b["s_rounds"] and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+        for k in ("stream", "stream_neg", "counts", "weights", "c_digits"))
+
+
+def host_engine_phase(dev, card, seed, commit, bad_items, expect, pipeline_sigs_per_s) -> dict:
+    """Phase 5: the native host engine against the Python packers on one
+    10,000-signature commit, the native route on a 150-signature commit,
+    native against ladder by commit size, and the calibrated dispatch."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.crypto import native, rlc
+
+    tune = [ln.split()[1].strip("_")[len("tune_"):] for ln in native._native_target().splitlines()
+            if ln.startswith("#define __tune_")]
+    out = {"engine": native.engine(), "cpu": cpu_model(), "march_native_tune": tune,
+           "nproc": os.cpu_count(), "rlc_packer_threads": native.rlc_packer_threads()}
+    log(f"native host engine: {out['engine']}; rlc_packer_threads {out['rlc_packer_threads']}; "
+        f"host CPU {out['cpu']} (g++ -march=native tunes for {tune}), nproc {out['nproc']}")
+    if not native.available():
+        raise AssertionError(f"the native host library did not build: {native.build_log}")
+    used = {"pack_rsk": 0, "rlc_pack": 0, "batch_verify": 0}
+    real = {name: getattr(native, name) for name in (*used, "rlc_available")}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            used[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in used:
+        setattr(native, name, counted(name))
+    try:
+        n, b = len(commit), E._bucket(len(commit))
+        bv = E.Ed25519BatchVerifier(dev)
+        bv.add_batch(*to_columns(commit))
+
+        # the ladder's rows: native against the hashlib loop
+        rsk_native = bv._pack_rsk(n, b).numpy().copy()
+        pack_native_ms = median_ms(lambda: bv._pack_rsk(n, b), ROUTE_REPS)
+        native.pack_rsk = lambda *args: False  # the Python path
+        rsk_python = bv._pack_rsk(n, b).numpy().copy()
+        pack_python_ms = median_ms(lambda: bv._pack_rsk(n, b), ROUTE_REPS)
+        native.pack_rsk = counted("pack_rsk")
+        if not np.array_equal(rsk_native, rsk_python):
+            raise AssertionError("native pack_rsk rows differ from the hashlib loop's")
+        if not used["pack_rsk"]:
+            raise AssertionError("the ladder's pack did not use the native library")
+
+        # the RLC layout: native against numpy, z pinned from --seed
+        skip = np.zeros(n, bool)
+        blobs = (bv._pub_buf, bv._sig_buf, bv._msg_buf, np.asarray(bv._msg_lens, np.uint64))
+        for attempt in range(5):  # a pinned z that the layout declines tells little
+            z16 = np.random.default_rng(seed + 1 + attempt).integers(0, 256, (n, 16),
+                                                                     dtype=np.uint8)
+            prep = rlc.prepare(None, skip, b, z16, blobs=blobs)
+            if not same_layout(prep, rlc.prepare_numpy(commit, skip, b, z16)):
+                raise AssertionError("native prepare differs from prepare_numpy")
+            if prep is not None:
+                break
+        else:
+            raise AssertionError("the RLC layout declined the commit under 5 pinned z")
+        if not used["rlc_pack"]:
+            raise AssertionError("prepare did not use the native packer")
+        prepare_native_ms = median_ms(lambda: bv._pack_rlc(z16), ROUTE_REPS)
+        native.rlc_available = lambda: False  # the numpy path
+        prepare_python_ms = median_ms(lambda: bv._pack_rlc(z16), 2)
+        native.rlc_available = real["rlc_available"]
+        out.update(host_pack_hash_ms={"native": pack_native_ms, "python": pack_python_ms},
+                   host_prepare_ms={"native": prepare_native_ms, "python": prepare_python_ms},
+                   layout_submits=attempt + 1)
+        log(f"host pack, one {n}-signature commit (median of {ROUTE_REPS}): host_pack_hash_ms "
+            f"native {pack_native_ms:.3f}, python {pack_python_ms:.3f}; host_prepare_ms native "
+            f"{prepare_native_ms:.3f}, python {prepare_python_ms:.3f} (median of 2); rows and "
+            f"layout byte-identical [{card}; {out['cpu']}, nproc {out['nproc']}]")
+
+        # a commit of NATIVE_SIGS signatures, with the bad lanes: the native route
+        small = E.Ed25519BatchVerifier(dev)
+        small.add_batch(*to_columns(bad_items[:NATIVE_SIGS]))
+        pending = small.submit()
+        if not isinstance(pending, E.DonePending) or pending._path != "native":
+            raise AssertionError(f"the {NATIVE_SIGS}-signature commit did not take the native "
+                                 "route")
+        ok, bits = pending.result()
+        if ok or bits != expect[:NATIVE_SIGS]:
+            wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
+            raise AssertionError(f"native route: bitmap wrong at lanes {wrong[:20]}")
+        if not used["batch_verify"]:
+            raise AssertionError("the native route did not use the native library")
+        log(f"native route, {NATIVE_SIGS}-signature bad-lane commit: bitmap exact (lanes 0-2 "
+            "rejected, torsion lanes 3-4 accepted)")
+
+        # the native route against the ladder, by commit size (one commit,
+        # submit to result, the ladder's pubkeys cached)
+        routes = {}
+        saved = E.NATIVE_MAX, E._rlc_beats_ladder
+        E._rlc_beats_ladder = lambda n, b, device: False
+        try:
+            for m in ROUTE_SIGS:
+                cols_m = to_columns(commit[:m])
+
+                def run(path):
+                    pending = submit_commit(cols_m, dev)
+                    if pending._path != path or not pending.result()[0]:
+                        raise AssertionError(f"{m} signatures: route {pending._path}, not {path},"
+                                             " or a valid commit failed")
+
+                E.NATIVE_MAX = m + 1
+                native_ms = median_ms(lambda: run("native"), ROUTE_REPS)
+                E.NATIVE_MAX = 0
+                ladder_ms = median_ms(lambda: run("ladder"), ROUTE_REPS)
+                routes[m] = {"native_ms": native_ms, "ladder_ms": ladder_ms}
+                log(f"{m} signatures, one commit (median of {ROUTE_REPS}): native {native_ms:.3f} "
+                    f"ms, ladder {ladder_ms:.3f} ms [{card}; {out['engine']}]")
+        finally:
+            E.NATIVE_MAX, E._rlc_beats_ladder = saved
+        out["route_ms"] = routes
+    finally:
+        for name, fn in real.items():
+            setattr(native, name, fn)
+
+    # the dispatch model, calibrated here (link, and the bucket's host
+    # packs and device halves), and its pick at 10,000
+    t0 = time.perf_counter()
+    model = E.dispatch_model(COMMIT_SIGS, B, dev)
+    calibration_s = time.perf_counter() - t0
+    pick = "rlc" if E._rlc_beats_ladder(COMMIT_SIGS, B, dev) else "ladder"
+    if pick != ("rlc" if model["t_rlc"] < model["t_ladder"] else "ladder"):
+        raise AssertionError("_rlc_beats_ladder disagrees with dispatch_model")
+    faster = max(pipeline_sigs_per_s, key=pipeline_sigs_per_s.get)
+    measured_ms = {r: 1e3 * COMMIT_SIGS / v for r, v in pipeline_sigs_per_s.items()}
+    out["dispatch"] = {"model": model, "calibration_s": calibration_s, "pick": pick,
+                       "faster_measured": faster, "pick_matches_measured": pick == faster,
+                       "pipeline_ms_per_commit": measured_ms}
+    log(f"dispatch model at {COMMIT_SIGS} signatures, bucket {B} (calibrated in "
+        f"{calibration_s:.3f} s): link {model['link_mbps']:.0f} MB/s; terms {model['terms']}")
+    for route in ("ladder", "rlc"):
+        st = model[route]
+        log(f"  {route}: host {st['host'] * 1e3:.3f} ms, wire {st['wire'] * 1e3:.3f} ms, device "
+            f"{st['device'] * 1e3:.3f} ms -> modeled {model['t_' + route] * 1e3:.3f} ms a commit; "
+            f"measured {measured_ms[route]:.3f} ms a commit in phase 4's pipeline")
+    log(f"dispatch pick at {COMMIT_SIGS}: {pick}; faster in phase 4's pipelines: {faster} "
+        f"({'matches' if pick == faster else 'does not match'}) [{card}]")
+    return out
 
 
 def main(argv=None) -> int:
@@ -611,7 +803,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ---- phase 4: the main path, counted, route by route
-    # (a) the ladder route
+    # (a) the ladder route, pinned through the dispatch seam
+    if COMMIT_SIGS < E.NATIVE_MAX:
+        raise AssertionError("the phase's commits would take the native route")
+    seam = E._rlc_beats_ladder
+    E._rlc_beats_ladder = lambda n, b, device: False
     K.reset_launches()
     t0 = time.perf_counter()
     commits = [generate_signed_batch(COMMIT_SIGS, seed=args.seed + i, msg_len=100,
@@ -688,8 +884,7 @@ def main(argv=None) -> int:
 
     # (b) the RLC/MSM route: the same commits, pinned through the dispatch seam
     K.reset_launches()
-    seam = E._rlc_beats_ladder
-    E._rlc_beats_ladder = lambda n, b: True
+    E._rlc_beats_ladder = lambda n, b, device: True
     try:
         rlc_cold_s, _ = pipeline()
         rlc_warm_s, rlc_warm_submit_s = pipeline()
@@ -834,14 +1029,18 @@ def main(argv=None) -> int:
         raise AssertionError(f"one RLC commit ran {len(dev_events)} device kernels, "
                              f"not under {RLC_MAX_DEVICE_KERNELS}")
 
+    # ---- phase 5: the native host engine
+    host = host_engine_phase(dev, card, args.seed, commits[0], items, expect,
+                             {"ladder": sigs_per_s, "rlc": rlc_sigs_per_s})
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
-                   rlc_counts=rlc_counts)
+                   rlc_counts=rlc_counts, host_engine=host)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))
 
-    # ---- phase 5 and 6: the kernel line, the card, the contract line
+    # ---- phase 6 and 7: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

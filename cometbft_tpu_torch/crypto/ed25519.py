@@ -1,12 +1,17 @@
 """Ed25519 public keys and the GPU batch verifier.
 
 Twin of the commit-verify subset of `cometbft_tpu/crypto/ed25519.py`.
-`Ed25519BatchVerifier.submit()` has two routes. The prehashed per-lane
-ladder is the default:
+`Ed25519BatchVerifier.submit()` has three routes. A batch of fewer than
+NATIVE_MAX lanes is verified at once on the host by the native C++
+engine (`_native_batch`, `crypto/native.py`): one random-linear-
+combination check, then one verify per lane when it fails. Larger
+batches go to the device, where the prehashed per-lane ladder is the
+default:
 
 - the host packs (b, 96) R||S||k rows, with k = SHA-512(R||A||M) mod L
-  hashed by hashlib, straight into a pinned buffer, and copies it to the
-  device with `non_blocking=True`;
+  hashed by the native packer (hashlib when the host library is absent),
+  straight into a pinned buffer, and copies it to the device with
+  `non_blocking=True`;
 - the pubkey column is decompressed once per validator set and kept on
   the device, keyed by (sha256(pubkey blob), bucket, device);
 - `ops.ed25519_verify.verify_batch_cached_a` runs the decompress and
@@ -19,9 +24,17 @@ multi-scalar multiplication (`ops.msm`): the host lays out the digit
 stream (`crypto.rlc.prepare`), one pinned buffer crosses to the device,
 and one all-ok scalar comes back (`PendingRLC`); when it is false, the
 batch reruns on the ladder route to find the failing lanes. `submit()`
-takes it for n >= RLC_MIN when `_rlc_beats_ladder(n, bucket)` says so,
-which it does not until the dispatch is calibrated on the GPU; tests and
-`chip_smoke.py` pin that seam.
+takes it for n >= RLC_MIN when `_rlc_beats_ladder(n, bucket, device)`
+says so: on a GPU it compares the two routes' modeled times
+(`dispatch_model`), whose host terms are timed on this host and whose
+device terms are timed on the card at the first decision for a bucket;
+on the CPU (the kernels' plain versions) it keeps the ladder. Tests and
+`chip_smoke.py` pin that seam, and `NATIVE_MAX = 0` sends every batch to
+the device routes.
+
+Each dispatch feeds `utils.metrics.crypto_metrics()` and, when tracing
+is on, one `crypto.batch_verify` span with the route and the model's
+terms (`_record_dispatch`).
 
 Behavior parity: reference crypto/ed25519/ed25519.go (verify :180-187
 with ZIP-215 options :36-41, batch :207-240). A verifier made for
@@ -32,13 +45,17 @@ from __future__ import annotations
 
 import hashlib
 import threading
+import time
 
 import numpy as np
 import torch
 
 from ..ops.ed25519_verify import decompress_pubkeys, verify_batch_cached_a
 from ..ops.msm import rlc_verify_stream
+from ..utils import trace as _trace
+from ..utils.metrics import crypto_metrics
 from . import ed25519_ref as ref
+from . import native
 from . import rlc as _rlc
 from .keys import BatchVerifier, PubKey, tmhash20
 
@@ -54,6 +71,12 @@ BUCKETS = (64, 256, 1024, 4096, 10240, 16384, 65536)
 # per-lane ladder (the reference's threshold).
 RLC_MIN = 4096
 
+# Below this size the native C++ engine verifies the batch on the host, as
+# the reference does with an accelerator present: a commit-sized batch
+# finishes there sooner than a device round trip. 0 disables the native
+# route (the seam that forces the device routes).
+NATIVE_MAX = 1024
+
 _L = ref.L
 # big-endian bytes of the group order, for the vectorized S < L precheck
 _L_BE = np.frombuffer(_L.to_bytes(32, "big"), np.uint8)
@@ -66,11 +89,164 @@ _A_CACHE_SIZE = 4
 _A_LOCK = threading.Lock()
 
 
-def _rlc_beats_ladder(n: int, b: int) -> bool:
-    """Whether the RLC/MSM route should take an n-lane batch in bucket b.
-    False until the dispatch between the two routes is calibrated on the
-    GPU: the reference's terms were measured on a TPU."""
-    return False
+# ---------------------------------------------------------------- dispatch
+
+# Wire bytes a lane of the ladder route (R||S||k; the pubkeys cross once
+# per validator set). The RLC route's bytes are those of its packed
+# buffer at the bucket, read when the bucket's terms are timed.
+_WIRE_LADDER_B = 96
+
+_LINK_MBPS: dict[str, float] = {}  # str(device) -> MB/s
+_TERMS: dict[tuple[int, str], dict] = {}  # (bucket, str(device)) -> calibrated terms
+
+
+def _link_mbps(dev: torch.device) -> float:
+    """Host-to-device rate, from one warm pinned 2 MiB copy timed with
+    CUDA events; measured once per device."""
+    key = str(dev)
+    if key not in _LINK_MBPS:
+        src = torch.zeros(2 << 20, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty_like(src, device=dev)
+        dst.copy_(src, non_blocking=True)  # warm the path
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        _LINK_MBPS[key] = src.numel() / 1e6 / max(start.elapsed_time(end) / 1e3, 1e-9)
+    return _LINK_MBPS[key]
+
+
+def _best_s(fn, reps: int = 2) -> tuple[float, object]:
+    """(fastest wall seconds of `reps` calls of fn(), its last result)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def _timed_launch(fn, dev: torch.device) -> tuple[float, float]:
+    """(host seconds to issue fn's launches, device seconds from CUDA
+    events around them) of one warm call of fn()."""
+    fn()
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    issue = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return issue, start.elapsed_time(end) / 1e3
+
+
+def _calibrate(b: int, dev: torch.device) -> dict:
+    """Both device routes' stages, timed on a throwaway batch of b random
+    lanes (100-byte messages, S < 2^252 so that no lane fails the
+    precheck; the halves take the same time whether or not a signature
+    verifies):
+
+    - host: the verifier's own pack of each route (`_pack_rsk`,
+      `_pack_rlc`), best of two, per lane. The reference times its
+      packers at 1,024 lanes once per process; at 1,024 the native RLC
+      packer's fixed costs overstated its cost a lane at 10,000 by
+      1.6-2.3x on the H100's host, so the port times them at the bucket;
+    - issue and device: one warm call of each route's device half, the
+      host time its launches take to issue and its CUDA-event time;
+    - the RLC route's packed-buffer bytes.
+    """
+    rng = np.random.default_rng(b)
+    sigs = rng.integers(0, 256, (b, 64), dtype=np.uint8)
+    sigs[:, 63] &= 0x0F
+    bv = Ed25519BatchVerifier(dev, force_perlane=True)
+    bv.add_batch(rng.integers(0, 256, (b, 32), dtype=np.uint8), sigs,
+                 rng.integers(0, 256, b * 100, dtype=np.uint8).tobytes(), np.full(b, 100))
+    pack_s, rsk_host = _best_s(lambda: bv._pack_rsk(b, b))
+    rsk = rsk_host.to(dev, non_blocking=True)
+    a_host, view = bv._host_buffer((b, 32))
+    view[:] = np.frombuffer(bv._pub_buf, np.uint8).reshape(b, 32)
+    ok_a, neg_a = decompress_pubkeys(a_host.to(dev, non_blocking=True))
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    ladder_issue, ladder_s = _timed_launch(
+        lambda: verify_batch_cached_a(ok_a, neg_a, rsk, live), dev)
+    terms = {"ladder_us": pack_s / b * 1e6, "ladder_issue_s": ladder_issue, "ladder_s": ladder_s,
+             "rlc_us": float("inf"), "rlc_issue_s": 0.0, "rlc_s": float("inf"), "rlc_wire_b": 0,
+             "rlc_native": native.rlc_available(), "rlc_threads": native.rlc_packer_threads()}
+    for _ in range(5):  # the layout draws z afresh and may decline
+        pack_s, packed = _best_s(bv._pack_rlc)
+        if packed is not None:
+            buf_host, fields, s_pad = packed
+            buf = buf_host.to(dev, non_blocking=True)
+            terms["rlc_issue_s"], terms["rlc_s"] = _timed_launch(
+                lambda: verify_rlc_packed(buf, fields, s_pad), dev)
+            terms.update(rlc_us=pack_s / b * 1e6, rlc_wire_b=buf_host.numel())
+            break
+    return terms
+
+
+def _terms(b: int, dev: torch.device) -> dict:
+    """The calibrated terms of bucket b on `dev`, timed at the first
+    decision for that bucket."""
+    key = (b, str(dev))
+    if key not in _TERMS:
+        _TERMS[key] = _calibrate(b, dev)
+        cm = crypto_metrics()
+        for term in ("ladder_us", "rlc_us"):
+            cm.calibration_us_per_sig.set(_TERMS[key][term], term)
+    return _TERMS[key]
+
+
+def dispatch_model(n: int, b: int, device="cuda") -> dict:
+    """The modeled stage times (seconds) of an n-lane batch in bucket b on
+    each device route of a CUDA `device`. A route's pipelined time is that
+    of its slowest stage: host (its pack, per lane, then issuing its
+    launches: the same thread does both), wire (bytes over the probed
+    link) or device (the bucket's event-timed device half)."""
+    dev = torch.device(device)
+    bw = _link_mbps(dev) * 1e6
+    t = _terms(b, dev)
+    ladder = {"wire": _WIRE_LADDER_B * b / bw, "device": t["ladder_s"],
+              "host": n * t["ladder_us"] * 1e-6 + t["ladder_issue_s"]}
+    rlc = {"wire": t["rlc_wire_b"] / bw, "device": t["rlc_s"],
+           "host": n * t["rlc_us"] * 1e-6 + t["rlc_issue_s"]}
+    return {"link_mbps": _LINK_MBPS[str(dev)], "terms": t, "ladder": ladder, "rlc": rlc,
+            "t_ladder": max(ladder.values()), "t_rlc": max(rlc.values())}
+
+
+def _rlc_beats_ladder(n: int, b: int, device) -> bool:
+    """Whether the RLC/MSM route should take an n-lane batch in bucket b:
+    by the calibrated model on a GPU; never on the CPU, whose plain
+    versions are no device to calibrate."""
+    if torch.device(device).type != "cuda":
+        return False
+    m = dispatch_model(n, b, device)
+    return m["t_rlc"] < m["t_ladder"]
+
+
+def _pack_rsk_rows(n: int, sig_blob, pub_blob, msg_blob, msg_lens, out: np.ndarray) -> None:
+    """R||S||k rows (k = SHA-512(R||A||M) mod L) into out[:n], a
+    C-contiguous (>= n, 96) uint8 array; msg_lens a uint64 array. The
+    native packer when the host library is built, hashlib otherwise."""
+    if native.pack_rsk(n, sig_blob, pub_blob, msg_blob, msg_lens, out):
+        return
+    sig = memoryview(sig_blob)
+    pub = memoryview(pub_blob)
+    msg = memoryview(msg_blob)
+    out[:n, :64] = np.frombuffer(sig, np.uint8, 64 * n).reshape(n, 64)
+    ks = bytearray(32 * n)
+    sha = hashlib.sha512
+    off = 0
+    for i, ln in enumerate(msg_lens.tolist()):
+        h = sha(sig[64 * i : 64 * i + 32])
+        h.update(pub[32 * i : 32 * i + 32])
+        h.update(msg[off : off + ln])
+        off += ln
+        k = int.from_bytes(h.digest(), "little") % _L
+        ks[32 * i : 32 * i + 32] = k.to_bytes(32, "little")
+    out[:n, 64:] = np.frombuffer(ks, np.uint8).reshape(n, 32)
 
 
 def _bucket(n: int) -> int:
@@ -95,6 +271,11 @@ class Ed25519PubKey(PubKey):
         return self._b
 
     def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        """One gossiped vote's signature: the native engine, or the
+        pure-Python `ed25519_ref` when the host library is absent."""
+        crypto_metrics().path_selected_total.inc(1.0, "single", "ed25519")
+        if native.available():
+            return native.verify(self._b, msg, sig)
         return ref.verify(self._b, msg, sig)
 
     def type_tag(self) -> str:
@@ -191,14 +372,7 @@ class Ed25519BatchVerifier(BatchVerifier):
     def _items(self) -> list[tuple[bytes, bytes, bytes]]:
         """The queued lanes as (pub, msg, sig) tuples (a precheck failure
         carries its zeroed signature)."""
-        out = []
-        off = 0
-        for i, ln in enumerate(self._msg_lens):
-            out.append((bytes(self._pub_buf[32 * i : 32 * i + 32]),
-                        bytes(self._msg_buf[off : off + ln]),
-                        bytes(self._sig_buf[64 * i : 64 * i + 64])))
-            off += ln
-        return out
+        return _rlc.items_of(self._pub_buf, self._sig_buf, self._msg_buf, self._msg_lens)
 
     def verify(self) -> tuple[bool, list[bool]]:
         if not self.count():
@@ -206,7 +380,8 @@ class Ed25519BatchVerifier(BatchVerifier):
         return self.submit().result()
 
     def submit(self) -> "PendingBatch | PendingRLC | DonePending":
-        """Launch device verification without blocking on the result.
+        """Verify natively (n < NATIVE_MAX), or launch device verification
+        without blocking on the result.
 
         A pipeline that submits several batches and collects them together
         (collect_pending) overlaps host packing with device work and pays
@@ -214,13 +389,60 @@ class Ed25519BatchVerifier(BatchVerifier):
         n = self.count()
         if n == 0:
             return DonePending(True, [])
-        if not self._force_perlane and n >= RLC_MIN and _rlc_beats_ladder(n, _bucket(n)):
-            pending = self._launch_rlc()
-            if pending is not None:
-                return pending
-        bits, all_ok = self._launch_device()
-        # snapshot: the verifier may be reused after submit()
-        return PendingBatch(bits, all_ok, n, list(self._precheck_fail))
+        t0 = time.perf_counter()
+        pending, path = None, "ladder"
+        if not self._force_perlane:
+            if 0 < NATIVE_MAX and n < NATIVE_MAX:
+                pending = self._native_batch()
+                if pending is not None:
+                    path = "native"
+            if pending is None and n >= RLC_MIN and _rlc_beats_ladder(n, _bucket(n), self.device):
+                pending = self._launch_rlc()
+                if pending is not None:
+                    path = "rlc"
+        if pending is None:
+            bits, all_ok = self._launch_device()
+            # snapshot: the verifier may be reused after submit()
+            pending = PendingBatch(bits, all_ok, n, list(self._precheck_fail))
+        self._record_dispatch(path, n, t0, pending)
+        return pending
+
+    def _record_dispatch(self, path: str, n: int, t0: float, pending) -> None:
+        """The route's counter and the batch size; the pending handle's
+        path and start time (its result() records the latency); and, when
+        tracing is on, one `crypto.batch_verify` span with the model's
+        stage terms of the route taken on a GPU."""
+        host_s = time.perf_counter() - t0
+        m = crypto_metrics()
+        m.batch_size.observe(n)
+        m.path_selected_total.inc(1.0, path, "ed25519")
+        pending._path = path
+        pending._t0 = t0
+        if _trace.enabled:
+            fields = {"path": path, "n": n}
+            if path != "native" and self.device.type == "cuda":
+                mdl = dispatch_model(n, _bucket(n), self.device)
+                stages = mdl[path]
+                fields.update(model_host_ms=round(stages["host"] * 1e3, 3),
+                              model_wire_ms=round(stages["wire"] * 1e3, 3),
+                              model_device_ms=round(stages["device"] * 1e3, 3),
+                              link_mbps=round(mdl["link_mbps"], 1))
+            _trace.emit("crypto.batch_verify", "span", dur_ms=round(host_s * 1e3, 3), **fields)
+
+    def _native_batch(self):
+        """The batch on the native C++ engine, resolved now: one
+        random-linear-combination check of the live lanes, then, if it
+        fails, one verify per lane for the bitmap. None when the host
+        library is absent (the device routes take the batch)."""
+        if not native.available():
+            return None
+        items = self._items()
+        live = [it for it, bad in zip(items, self._precheck_fail) if not bad]
+        if live and native.batch_verify(live):
+            bits = [not bad for bad in self._precheck_fail]
+        else:
+            bits = [not bad and native.verify(*it) for it, bad in zip(items, self._precheck_fail)]
+        return DonePending(all(bits), bits)
 
     def _host_buffer(self, shape) -> tuple[torch.Tensor, np.ndarray]:
         """A zeroed uint8 host tensor (pinned when the target is a GPU) and
@@ -231,21 +453,8 @@ class Ed25519BatchVerifier(BatchVerifier):
     def _pack_rsk(self, n: int, b: int) -> torch.Tensor:
         """(b, 96) R||S||k rows, k = SHA-512(R||A||M) mod L hashed here."""
         rsk, view = self._host_buffer((b, 96))
-        sig = memoryview(self._sig_buf)
-        pub = memoryview(self._pub_buf)
-        msg = memoryview(self._msg_buf)
-        view[:n, :64] = np.frombuffer(sig, np.uint8).reshape(n, 64)
-        ks = bytearray(32 * n)
-        sha = hashlib.sha512
-        off = 0
-        for i, ln in enumerate(self._msg_lens):
-            h = sha(sig[64 * i : 64 * i + 32])
-            h.update(pub[32 * i : 32 * i + 32])
-            h.update(msg[off : off + ln])
-            off += ln
-            k = int.from_bytes(h.digest(), "little") % _L
-            ks[32 * i : 32 * i + 32] = k.to_bytes(32, "little")
-        view[:n, 64:] = np.frombuffer(ks, np.uint8).reshape(n, 32)
+        _pack_rsk_rows(n, self._sig_buf, self._pub_buf, self._msg_buf,
+                       np.asarray(self._msg_lens, np.uint64), view)
         return rsk
 
     def _pubkeys_on_device(self, n: int, b: int):
@@ -281,7 +490,9 @@ class Ed25519BatchVerifier(BatchVerifier):
         n = self.count()
         b = _bucket(n)
         skip = np.asarray(self._precheck_fail, bool)
-        prep = _rlc.prepare(self._items(), skip, b, z16)
+        # the columnar blobs: the native packer reads them without a join
+        prep = _rlc.prepare(None, skip, b, z16, blobs=(
+            self._pub_buf, self._sig_buf, self._msg_buf, np.asarray(self._msg_lens, np.uint64)))
         if prep is None:
             return None
         # pad the round count to a power of two (min 8), the reference's
@@ -349,6 +560,16 @@ def verify_rlc_packed(buf: torch.Tensor, fields: dict, s_pad: int) -> torch.Tens
         t["weights"], t["c_digits"], s_rounds=s_pad)
 
 
+def _observe_latency(p) -> None:
+    """Record the submit->result wall time of a pending handle in the
+    per-route latency histogram, once (the first resolution)."""
+    if p._t0 is None:
+        return
+    crypto_metrics().verify_seconds.observe(time.perf_counter() - p._t0,
+                                            p._path or "unknown", "ed25519")
+    p._t0 = None
+
+
 class PendingBatch:
     """Handle to an in-flight device batch; result() fetches and finalizes.
 
@@ -357,15 +578,18 @@ class PendingBatch:
     device-reduced all-ok scalar; the bitmap transfers only when some lane
     failed."""
 
-    __slots__ = ("_dev", "_all_ok", "_n", "_precheck_fail")
+    __slots__ = ("_dev", "_all_ok", "_n", "_precheck_fail", "_path", "_t0")
 
     def __init__(self, dev, all_ok, n, precheck_fail):
         self._dev = dev
         self._all_ok = all_ok
         self._n = n
         self._precheck_fail = precheck_fail
+        self._path = None
+        self._t0 = None
 
     def _finalize_fast(self, dev_all_ok: bool) -> tuple[bool, list[bool]]:
+        _observe_latency(self)
         if dev_all_ok and not any(self._precheck_fail):
             return True, [True] * self._n
         bits = self._dev[: self._n].cpu().tolist()
@@ -383,14 +607,17 @@ class PendingRLC:
     as the reference falls back from batch to single verification
     (types/validation.go:304-311)."""
 
-    __slots__ = ("_all_ok", "_precheck_fail", "_lanes")
+    __slots__ = ("_all_ok", "_precheck_fail", "_lanes", "_path", "_t0")
 
     def __init__(self, all_ok, precheck_fail, lanes: Ed25519BatchVerifier):
         self._all_ok = all_ok
         self._precheck_fail = precheck_fail
         self._lanes = lanes  # force_perlane verifier holding the batch
+        self._path = None
+        self._t0 = None
 
     def _finalize_fast(self, dev_all_ok: bool) -> tuple[bool, list[bool]]:
+        _observe_latency(self)
         if dev_all_ok:
             bits = [not bad for bad in self._precheck_fail]
             return all(bits), bits
@@ -401,20 +628,24 @@ class PendingRLC:
 
 
 class DonePending:
-    """Already-resolved batch behind the pending API."""
+    """Already-resolved batch (the native route, or no lane) behind the
+    pending API."""
 
-    __slots__ = ("_ok", "_bits", "_all_ok")
+    __slots__ = ("_ok", "_bits", "_all_ok", "_path", "_t0")
 
     def __init__(self, ok, bits):
         self._ok = ok
         self._bits = bits
         self._all_ok = torch.tensor(ok)  # collect_pending stacks this
+        self._path = None
+        self._t0 = None
 
     def _finalize_fast(self, _dev_all_ok) -> tuple[bool, list[bool]]:
+        _observe_latency(self)
         return self._ok, self._bits
 
     def result(self) -> tuple[bool, list[bool]]:
-        return self._ok, self._bits
+        return self._finalize_fast(self._ok)
 
 
 def collect_pending(pendings) -> list[tuple[bool, list[bool]]]:

@@ -1,15 +1,19 @@
 """Host half of the RLC/MSM batch verifier: scalars, digits, layout.
 
-Twin of `cometbft_tpu/crypto/rlc.py` (its numpy packer, `prepare_numpy`).
-The device (`ops/msm.py`) wants a dense (S, W*K) gather table; everything
-data-dependent (SHA-512 challenges, random coefficients, signed-digit
-decomposition, bucket sorting, slot assignment) is vectorized numpy here,
-leaving the device pure point arithmetic. Mirrors the scalar side of the
-reference's batch verifier (crypto/ed25519/ed25519.go:207-240: z_i
-sampling, h_i = H(R||A||M), s-coefficient accumulation).
+Twin of `cometbft_tpu/crypto/rlc.py`. The device (`ops/msm.py`) wants a
+dense (S, W*K) gather table; everything data-dependent (SHA-512
+challenges, random coefficients, signed-digit decomposition, bucket
+sorting, slot assignment) is done here, leaving the device pure point
+arithmetic. Mirrors the scalar side of the reference's batch verifier
+(crypto/ed25519/ed25519.go:207-240: z_i sampling, h_i = H(R||A||M),
+s-coefficient accumulation).
 
-For the same items, skip mask, bucket and z coefficients, `prepare` gives
-byte-identical arrays to the reference's `prepare_numpy`.
+`prepare` takes the native C++ packer (`crypto/native.py::rlc_pack`,
+`csrc/host/rlc_packer.inc`) when the host library is built, and the
+numpy packer `prepare_numpy` when it is absent; `prepare_numpy` is also
+the oracle the native packer is tested against. For the same items, skip
+mask, bucket and z coefficients both give byte-identical arrays, and
+identical to the reference's `prepare` and `prepare_numpy`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 
 from ..ops.curve import scalar_digits
 from . import ed25519_ref as ref
+from . import native
 
 L = ref.L
 
@@ -79,18 +84,44 @@ def _signed_digits(scalars_bytes: np.ndarray, n_windows: int) -> np.ndarray:
     return digits
 
 
-def prepare(items, skip: np.ndarray, bucket: int, z16=None):
+def prepare(items, skip: np.ndarray, bucket: int, z16=None, blobs=None):
     """Build the device inputs for one RLC batch.
 
-    items: list of (pub32, msg, sig64); skip: bool (n,) lanes excluded
-    (precheck failures: they get z=0 and are reported failed by the
-    caller). Returns a dict, or None when a bucket overflows slot depth or
-    no lane is live (the caller takes the per-lane route).
+    items: list of (pub32, msg, sig64), or None when `blobs` holds the
+    batch; skip: bool (n,) lanes excluded (precheck failures: they get z=0
+    and are reported failed by the caller). Returns a dict, or None when a
+    bucket overflows slot depth or no lane is live (the caller takes the
+    per-lane route).
 
     z16: optional (n, 16) uint8 little-endian z coefficients (bit 0 is
     forced on). Tests pin it to compare with the reference bit-for-bit;
     production leaves it None (a fresh CSPRNG draw per batch).
+    blobs: optional columnar (pub_blob, sig_blob, msg_blob, msg_lens), as
+    the verifier holds them: the native packer reads them without a
+    per-item join.
     """
+    if native.rlc_available():
+        return _prepare_native(items, skip, bucket, z16, blobs)
+    if items is None:
+        items = items_of(*blobs)
+    return prepare_numpy(items, skip, bucket, z16)
+
+
+def items_of(pub_blob, sig_blob, msg_blob, msg_lens) -> list[tuple[bytes, bytes, bytes]]:
+    """Columnar blobs (32-byte pubs, 64-byte sigs, concatenated messages
+    and their lengths) -> (pub, msg, sig) tuples."""
+    out, off = [], 0
+    for i, ln in enumerate(int(x) for x in msg_lens):
+        out.append((bytes(pub_blob[32 * i : 32 * i + 32]), bytes(msg_blob[off : off + ln]),
+                    bytes(sig_blob[64 * i : 64 * i + 64])))
+        off += ln
+    return out
+
+
+def prepare_numpy(items, skip: np.ndarray, bucket: int, z16=None):
+    """The numpy packer: the native packer's oracle, and `prepare` when
+    the host library is absent. Same contract as `prepare` (items
+    required)."""
     n = len(items)
     depth = slot_depth(bucket)
     if depth > 255:
@@ -223,6 +254,58 @@ def prepare(items, skip: np.ndarray, bucket: int, z16=None):
         "s_rounds": s_rounds,  # round count the layout needs
         "weights": weight_table,  # (W, K) per-lane digit values
         "c_digits": scalar_digits([c]),  # (64, 1)
+    }
+
+
+def _prepare_native(items, skip, bucket: int, z16, blobs):
+    """`prepare` on the native packer: the same dict, or None on the same
+    declines (a window's lanes overflow, or no live lane)."""
+    n = len(items) if items is not None else len(skip)
+    depth = slot_depth(bucket)
+    if depth > 255:
+        return None  # the numpy path's uint8-counts bound
+    if blobs is not None:
+        pub_blob, sig_blob, msg_blob, msg_lens = blobs
+    else:
+        pub_blob = b"".join(it[0] for it in items)
+        sig_blob = b"".join(it[2] for it in items)
+        msg_blob = b"".join(it[1] for it in items)
+        msg_lens = [len(it[1]) for it in items]
+    msg_lens = np.ascontiguousarray(msg_lens, np.uint64)
+    skip_u8 = np.ascontiguousarray(np.asarray(skip, bool).astype(np.uint8))
+    if z16 is None:
+        z16 = np.frombuffer(os.urandom(16 * n), np.uint8)
+    z16 = np.ascontiguousarray(z16, np.uint8).reshape(-1)
+    if z16.size != 16 * n:
+        raise ValueError("z16 must be n*16 bytes")
+
+    sentinel = 2 * bucket
+    wide = sentinel > 0x7FFF  # uint16 covers buckets <= 16383
+    dt = np.uint32 if wide else np.uint16
+    tier = 1 << 13
+    cap = ((N_REGIONS * n + 1 + tier - 1) // tier) * tier  # max c_len + 1, tiered
+    stream = np.empty(cap, dt)
+    neg = np.zeros(cap, np.uint8)  # the tail must stay 0 for packbits
+    counts = np.empty(WK, np.uint8)
+    weights = np.empty((N_REGIONS, K_BUCKETS), np.int32)
+    out_c = np.empty(32, np.uint8)
+    c_len, s_rounds = native.rlc_pack(
+        n, bucket, depth, pub_blob, sig_blob, msg_blob, msg_lens, skip_u8, z16,
+        4 if wide else 2, stream, neg, counts, weights, out_c)
+    if c_len < 0:
+        return None  # -1 lane overflow, -2 no live lane: the numpy path's None
+
+    # the numpy path's tiering: at least one sentinel slot, then the stream
+    # rounded up to the next 8192-entry tier
+    padded = ((c_len + 1 + tier - 1) // tier) * tier
+    stream[c_len:padded] = sentinel
+    return {
+        "stream": stream[:padded],
+        "stream_neg": np.packbits(neg[:padded], bitorder="little"),
+        "counts": counts,
+        "s_rounds": s_rounds,
+        "weights": weights,
+        "c_digits": scalar_digits([int.from_bytes(out_c.tobytes(), "little")]),
     }
 
 

@@ -1,0 +1,59 @@
+"""JSONL span/event tracer: the port's minimal copy of
+`cometbft_tpu/utils/trace.py`.
+
+`enabled` is a plain module bool, so a hot path guards with
+``if trace.enabled:`` and pays one global load when tracing is off.
+`configure(path)` opens (appends to) a JSONL sink and turns tracing on;
+`disable()` closes it. Each record is one JSON object per line with
+``ts`` (epoch seconds), ``pid``, ``name`` and ``kind`` ("span" or
+"event"), spans add ``dur_ms``, and the caller's fields follow.
+
+The port emits the reference's span names (`crypto.batch_verify`), so
+the two backends' traces line up.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+enabled = False
+_fh = None
+_lock = threading.Lock()
+
+def configure(path: str) -> None:
+    """Open (append) the JSONL sink at `path` and enable tracing."""
+    global enabled, _fh
+    with _lock:
+        if _fh is not None:
+            _fh.close()
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        _fh = open(path, "a", encoding="utf-8")
+        enabled = True
+
+
+def disable() -> None:
+    global enabled, _fh
+    with _lock:
+        enabled = False
+        if _fh is not None:
+            _fh.close()
+        _fh = None
+
+
+def emit(name: str, kind: str = "event", **fields) -> None:
+    """Write one record and flush it. No-op (one bool check) when
+    disabled."""
+    if not enabled:
+        return
+    rec = {"ts": time.time(), "pid": os.getpid(), "name": name, "kind": kind, **fields}
+    line = json.dumps(rec, separators=(",", ":"), default=str) + "\n"
+    with _lock:
+        if _fh is None:  # raced with disable()
+            return
+        _fh.write(line)
+        _fh.flush()

@@ -36,8 +36,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         import chip_smoke
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 12 else 0)
+        missing = set(["cometbft_tpu_torch.crypto.native", "cometbft_tpu_torch.utils.trace",
+                       "cometbft_tpu_torch.utils.metrics"]) - set(names)
+        print(len(names), bad, missing)
+        sys.exit(1 if bad or missing or len(names) < 12 else 0)
     """)
     # -I: no PYTHON* variables and no user site, so nothing preloads JAX
     res = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,

@@ -22,6 +22,16 @@ from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def device_routes(monkeypatch):
+    """NATIVE_MAX = 0: the verifier tests' batches are smaller than
+    NATIVE_MAX and would go to the native C++ engine; these tests hold the
+    device routes."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -267,7 +277,7 @@ def test_rlc_route_on_the_card(dev, monkeypatch):
     from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
 
     monkeypatch.setattr(E, "RLC_MIN", 1)
-    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b: True)
+    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b, device: True)
     items = generate_signed_batch(40, seed=5, device=dev)
     bv = E.Ed25519BatchVerifier(device=dev)
     for i, (pub, msg, sig) in enumerate(items):

@@ -293,11 +293,19 @@ def test_rlc_verify_stream_verdicts(case, expect):
 # ---------------------------------------------------------------- the route
 
 
+@pytest.fixture(autouse=True)
+def device_routes(monkeypatch):
+    """NATIVE_MAX = 0: every batch here is smaller than NATIVE_MAX and
+    would go to the native C++ engine; these tests hold the device
+    routes."""
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+
+
 @pytest.fixture
 def rlc_seam(monkeypatch):
     """Pin the verifier's dispatch on the RLC route for any batch size."""
     monkeypatch.setattr(E, "RLC_MIN", 1)
-    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b: True)
+    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b, device: True)
 
 
 def verifier(items, **kw):
@@ -309,7 +317,7 @@ def verifier(items, **kw):
 
 def test_dispatch_keeps_the_ladder_by_default():
     assert E.RLC_MIN == 4096
-    assert E._rlc_beats_ladder(10_000, 10_240) is False
+    assert E._rlc_beats_ladder(10_000, 10_240, torch.device("cpu")) is False
 
 
 def test_packed_buffer_carries_the_layout(batch):

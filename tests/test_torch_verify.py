@@ -29,6 +29,14 @@ from cometbft_tpu_torch.ops import ed25519_verify as V  # noqa: E402
 rng = np.random.default_rng(2024)
 
 
+@pytest.fixture(autouse=True)
+def device_routes(monkeypatch):
+    """NATIVE_MAX = 0: every batch here is smaller than NATIVE_MAX and
+    would go to the native C++ engine; these tests hold the device
+    routes."""
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+
+
 def signed(n, msg_len=100):
     out = []
     for _ in range(n):
