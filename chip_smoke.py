@@ -27,7 +27,17 @@ and never prints its last line):
    plain version with CUDA events, and the kernel alone in the profiler;
    for the one-lane chains, also the latency floor (dependent product
    stages times one product's latency, read off `decompress`'s time);
-4. the main path, two routes, each with every launch count set to 0
+   then the device-SHA kernels at B = 10,240: `sha512_blocks` on the
+   padded R||A||M of that commit's 10,000 vote-shaped lanes (two blocks)
+   and 240 edge lanes (preimages of 0, 111, 112, 175 and 239 bytes,
+   messages of 0, 111, 112 and 175 bytes behind R||A, one-block lanes, and
+   one-block flags over a second block of junk), `reduce512` on those
+   digests with the edge values 0, L - 1, L, 2L, 2^512 - 1 and values just
+   under multiples of L in the first lanes: exact against the plain
+   versions, the digests against `hashlib.sha512` and k against
+   `int.from_bytes(digest, "little") % L` on every lane, launches of 1, 3,
+   70 and 1,027 lanes equal to the full launch's;
+4. the main path, four routes, each with every launch count set to 0
    just before it and read right after; a kernel of the route that was
    never launched is an error:
    - the ladder route, pinned through the dispatch seam
@@ -48,10 +58,20 @@ and never prints its last line):
      `decompress`, `accum_weight`, `region_sum`, `window_combine` and
      `ladder_sub_mul8` must have launched on every commit the layout
      accepted, and `fe_mul` plus `fe_sq` at most twice a commit (the
-     niels forms of A and R).
-   Every commit of the phase has more than NATIVE_MAX signatures, so
-   none takes the native route. A stage split of one warm commit of each
-   route (host pack, H2D, device, D2H) and a profile of its device
+     niels forms of A and R);
+   - the device-SHA route (`Ed25519BatchVerifier(device_sha=True)`, the
+     RLC seam pinned False): the same 16 commits, cold and warm, the
+     bad-lane commit, and the bad-lane commit with two lanes whose
+     R||A||M exceeds two SHA-512 blocks (a valid and a broken one), which
+     go out dead and come back verified on the host; `sha512_blocks`,
+     `reduce512`, `decompress` and `ladder_sub_mul8` once or more a commit;
+   - the structured-wire (delta) route, pinned through its seam
+     (`crypto.ed25519._delta_beats_prehashed` True): the same 16 commits
+     and the bad-lane commit; the same four kernels.
+   The ladder and RLC legs pin the delta seam False. Every commit of the
+   phase has more than NATIVE_MAX signatures, so none takes the native
+   route. A stage split of one warm commit of each route (host pack,
+   H2D, device, D2H, wire bytes a lane) and a profile of its device
    kernels follow; the RLC commit must run fewer than 1,000 device
    kernels;
 5. the native host engine (`crypto/native.py`, built with g++ from
@@ -66,10 +86,13 @@ and never prints its last line):
    and 10,000 signatures; the dispatch model is calibrated (link probe,
    the bucket's host packs and device halves on a throwaway batch) and
    its pick at 10,000 is logged beside the faster route of phase 4's
-   pipelines;
+   pipelines, and its delta term's pick (delta or the prehashed ladder)
+   beside the measured ladder and delta pipelines;
 6. one JSON line `{"kernels": [...]}` with each kernel's launches,
-   mismatches, time, plain time and bound (multiplies at 100 and
-   squarings at 55 wide integer multiplies);
+   mismatches, time, plain time and bound (field products: multiplies at
+   100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
+   SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
+   lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane);
 7. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
@@ -113,6 +136,20 @@ INT32_MUL_PER_SM_CLK = 64
 MULS_PER_MUL = 100
 MULS_PER_SQ = 55
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# 32-bit integer instructions of one SHA-512 block in csrc/sha512_kernels.cu,
+# each 64-bit word as two 32-bit halves: a round's Sigma0 and Sigma1 (3
+# rotations of 2 funnel shifts, then one 3-input XOR a half: 8 each), Ch
+# and Maj (one 3-input logic op a half: 2 each), t1 (five 64-bit terms: 2
+# three-input adds a half: 4), t2, e and a (2 each): 30; the schedule of
+# rounds 16-79 (sigma0 and sigma1, 8 each, and a four-term add, 4): 20.
+# 80 rounds and the 8 additions to the state (16): 30 x 80 + 20 x 64 + 16.
+# Each at 64 a clock an SM (CUDA C++ Programming Guide, cc 9.0: 32-bit
+# integer add, bitwise and shift).
+SHA_INT_OPS_PER_BLOCK = 30 * 80 + 20 * 64 + 16
+INT32_OPS_PER_SM_CLK = 64
+# wide (32x32->64) multiplies of reduce512 a lane: the 9 x 9 words of
+# q1 * mu and the 44 of q3 * L mod b^9
+REDUCE_WIDE_MULS = 9 * 9 + sum(min(8, 9 - i) for i in range(9))
 
 SOURCES = {
     "fe_mul": ("cometbft_tpu_torch/csrc/field_kernels.cu", "cometbft_tpu/ops/field.py:229"),
@@ -126,7 +163,13 @@ SOURCES = {
     "window_combine": ("cometbft_tpu_torch/csrc/msm_kernels.cu",
                        "cometbft_tpu/ops/field.py:229 and :233, launched from "
                        "cometbft_tpu/ops/msm.py:322"),
+    "sha512_blocks": ("cometbft_tpu_torch/csrc/sha512_kernels.cu",
+                      "cometbft_tpu/ops/sha512.py:131 (plain XLA)"),
+    "reduce512": ("cometbft_tpu_torch/csrc/sha512_kernels.cu",
+                  "cometbft_tpu/ops/scalar.py:131 (plain XLA)"),
 }
+# the kernels the device-SHA and delta routes launch
+SHA_KERNELS = ("sha512_blocks", "reduce512", "decompress", "ladder_sub_mul8")
 # Dependent field-product stages of the one-lane chains: a region's tree is
 # 9 additions of 3 products in a row (a, b, then c = (T1 2d) T2, then the
 # four outputs); with four threads a lane, a doubling and an addition are
@@ -190,6 +233,33 @@ def kernel_device_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float:
         if 10 * len(ev) >= 9 * reps:
             return sum(e.device_time_total for e in ev) / len(ev) / 1e3
     raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, expected {reps}")
+
+
+def profile_commit(fn, out_name: str, kernels=SOURCES):
+    """The device kernels of one warm call of fn(), from a profiler trace of
+    two calls whose first is the profiler's warm-up step: a trace of one
+    call dropped the kernels at the start of its window (on an H100, the
+    device-SHA commit's first two, `sha512_blocks` and `reduce512`).
+    Writes the kernel table to OUT_DIR / out_name; returns (device
+    kernels, busy ms, launches of each of `kernels`, table)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # the active step: its events stay in prof when the trace ends
+        fn()
+        torch.cuda.synchronize()
+    # the step's own span on the device timeline is an annotation, not a kernel
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith("ProfilerStep")]
+    by_kernel = {name: sum(1 for e in dev_events if f"{name}_kernel" in e.name)
+                 for name in kernels}
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    (OUT_DIR / out_name).write_text(table)
+    return len(dev_events), sum(e.device_time_total for e in dev_events) / 1e3, by_kernel, table
 
 
 def loose_limbs(rng, n: int):
@@ -265,12 +335,17 @@ def to_columns(items):
     return pubs.copy(), sigs.copy(), b"".join(m for _, m, _ in items), lens
 
 
-def submit_commit(cols, device):
+def submit_commit(cols, device, device_sha=False):
+    """One commit through the consumer entry point (`create_batch_verifier`),
+    or through `Ed25519BatchVerifier(device_sha=True)`."""
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
-    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519BatchVerifier, Ed25519PubKey
 
     pubs, sigs, blob, lens = cols
-    bv = create_batch_verifier(Ed25519PubKey(pubs[0].tobytes()), device=device)
+    if device_sha:
+        bv = Ed25519BatchVerifier(device=device, device_sha=True)
+    else:
+        bv = create_batch_verifier(Ed25519PubKey(pubs[0].tobytes()), device=device)
     bv.add_batch(pubs, sigs, blob, lens)
     return bv.submit()
 
@@ -289,6 +364,81 @@ def submit_through_rlc(cols, device, on_decline, tries: int = 5):
             return pending, submits
         on_decline(pending)
     raise AssertionError(f"the RLC layout declined the commit {tries} times in a row")
+
+
+def sha_phase(dev, seed, items, record, kern, mul_rate, int_rate) -> None:
+    """Phase 3's device-SHA kernels at B = 10,240: `sha512_blocks` on the
+    padded R||A||M of the commit's lanes and 240 edge lanes, `reduce512` on
+    those digests with edge values in the first lanes; each exact against
+    its plain version, the digests against hashlib and k against Python
+    integers on every lane, ragged launches equal to the full launch's."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.ops import scalar as SC
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    rng = np.random.default_rng(seed + 7)
+    pre = [sig[:32] + pub + msg for pub, msg, sig in items]
+    head = pre[0][:64]  # a real R||A
+    edge = [rng.bytes(n) for n in (0, 111, 112, 175, 239)]
+    edge += [head + rng.bytes(n) for n in (0, 111, 112, 175)]
+    edge += [head + rng.bytes(40) for _ in range(B - len(pre) - len(edge))]  # one block
+    pre += edge
+    words_np, two_np = H.pad_messages(pre)
+    words_np[B - 8 :, 32:] = rng.integers(0, 2**32, (8, 32), dtype=np.uint32)  # junk block 2
+    if two_np[B - 8 :].any() or not two_np[: len(items)].all():
+        raise AssertionError("the SHA check's lanes are not laid out as intended")
+    words = torch.from_numpy(words_np.view(np.int32)).to(dev)
+    two = torch.from_numpy(two_np).to(dev)
+    digest = K.sha512_blocks(words, two)
+    want = H.sha512_digest_plain(words, two)
+    mism = int((digest != want).any(dim=1).sum())
+    err = int((digest.int() - want.int()).abs().max())
+    host = digest.cpu().numpy()
+    wrong = [i for i, m in enumerate(pre) if host[i].tobytes() != hashlib.sha512(m).digest()]
+    if wrong:
+        raise AssertionError(f"sha512_blocks: {len(wrong)} digests differ from hashlib, "
+                             f"lanes {wrong[:10]}")
+    for n in RAGGED_LANES:
+        if not torch.equal(K.sha512_blocks(words[:n].contiguous(), two[:n].contiguous()),
+                           digest[:n]):
+            raise AssertionError(f"sha512_blocks: lanes differ between B={n} and B={B} launches")
+    blocks = B + int(two_np.sum())
+    log(f"sha512_blocks: {len(items)} vote-shaped R||A||M and {len(edge)} edge lanes, "
+        f"{int(two_np.sum())} of two blocks, every digest equal to hashlib's; ragged launches "
+        f"{RAGGED_LANES} equal to the B={B} launch")
+    record("sha512_blocks", mism, err, lambda: K.sha512_blocks(words, two),
+           lambda: H.sha512_digest_plain(words, two), 50, B, (256 + 1 + 64) * B,
+           ops_s=blocks * SHA_INT_OPS_PER_BLOCK / int_rate)
+    kern["sha512_blocks"].update(blocks_hashed=blocks, int_ops_per_block=SHA_INT_OPS_PER_BLOCK)
+
+    L, top = ref.L, (1 << 512) - 1
+    edges = [0, 1, L - 1, L, L + 1, 2 * L - 1, 2 * L, 3 * L - 1, top, top - 1, top // L * L,
+             top // L * L - 1, (1 << 252) - 1, (1 << 256) - 1]
+    edges += [q * L - d for q in (2**200, 2**259 + 3, top // L) for d in (1, 2)]
+    red_in = digest.clone()
+    red_in[: len(edges)] = torch.from_numpy(np.stack(
+        [np.frombuffer(v.to_bytes(64, "little"), np.uint8) for v in edges])).to(dev)
+    k = K.reduce512(red_in)
+    want = SC.reduce512_plain(red_in)
+    mism = int((k != want).any(dim=0).sum())
+    err = int((k - want).abs().max())
+    k_host, in_host = k.cpu().numpy().astype(object), red_in.cpu().numpy()
+    got = (k_host * np.array([1 << (12 * j) for j in range(22)], dtype=object)[:, None]).sum(0)
+    wrong = [i for i in range(B)
+             if got[i] != int.from_bytes(in_host[i].tobytes(), "little") % L]
+    if wrong:
+        raise AssertionError(f"reduce512: {len(wrong)} lanes differ from Python's mod L, "
+                             f"lanes {wrong[:10]}")
+    for n in RAGGED_LANES:
+        if not torch.equal(K.reduce512(red_in[:n].contiguous()), k[:, :n]):
+            raise AssertionError(f"reduce512: lanes differ between B={n} and B={B} launches")
+    log(f"reduce512: {len(edges)} edge values (0, L - 1, L, 2L, 2^512 - 1, just under multiples "
+        f"of L) and {B - len(edges)} digests, every k equal to int.from_bytes(d, 'little') % L; "
+        f"ragged launches {RAGGED_LANES} equal to the B={B} launch")
+    record("reduce512", mism, err, lambda: K.reduce512(red_in), lambda: SC.reduce512_plain(red_in),
+           100, B, (64 + 88) * B, ops_s=REDUCE_WIDE_MULS * B / mul_rate)
+    kern["reduce512"]["wide_muls_per_lane"] = REDUCE_WIDE_MULS
 
 
 def ptxas_per_kernel(K, report: dict) -> dict:
@@ -470,8 +620,9 @@ def host_engine_phase(dev, card, seed, commit, bad_items, expect, pipeline_sigs_
         # the native route against the ladder, by commit size (one commit,
         # submit to result, the ladder's pubkeys cached)
         routes = {}
-        saved = E.NATIVE_MAX, E._rlc_beats_ladder
+        saved = E.NATIVE_MAX, E._rlc_beats_ladder, E._delta_beats_prehashed
         E._rlc_beats_ladder = lambda n, b, device: False
+        E._delta_beats_prehashed = lambda n, b, device: False
         try:
             for m in ROUTE_SIGS:
                 cols_m = to_columns(commit[:m])
@@ -490,7 +641,7 @@ def host_engine_phase(dev, card, seed, commit, bad_items, expect, pipeline_sigs_
                 log(f"{m} signatures, one commit (median of {ROUTE_REPS}): native {native_ms:.3f} "
                     f"ms, ladder {ladder_ms:.3f} ms [{card}; {out['engine']}]")
         finally:
-            E.NATIVE_MAX, E._rlc_beats_ladder = saved
+            E.NATIVE_MAX, E._rlc_beats_ladder, E._delta_beats_prehashed = saved
         out["route_ms"] = routes
     finally:
         for name, fn in real.items():
@@ -504,20 +655,30 @@ def host_engine_phase(dev, card, seed, commit, bad_items, expect, pipeline_sigs_
     pick = "rlc" if E._rlc_beats_ladder(COMMIT_SIGS, B, dev) else "ladder"
     if pick != ("rlc" if model["t_rlc"] < model["t_ladder"] else "ladder"):
         raise AssertionError("_rlc_beats_ladder disagrees with dispatch_model")
-    faster = max(pipeline_sigs_per_s, key=pipeline_sigs_per_s.get)
+    faster = max(("ladder", "rlc"), key=pipeline_sigs_per_s.get)
     measured_ms = {r: 1e3 * COMMIT_SIGS / v for r, v in pipeline_sigs_per_s.items()}
+    delta_pick = "delta" if E._delta_beats_prehashed(COMMIT_SIGS, B, dev) else "ladder"
+    if delta_pick != ("delta" if model["t_delta"] < model["t_ladder"] else "ladder"):
+        raise AssertionError("_delta_beats_prehashed disagrees with dispatch_model")
+    delta_faster = max(("ladder", "delta"), key=pipeline_sigs_per_s.get)
     out["dispatch"] = {"model": model, "calibration_s": calibration_s, "pick": pick,
                        "faster_measured": faster, "pick_matches_measured": pick == faster,
+                       "delta_pick": delta_pick, "delta_faster_measured": delta_faster,
+                       "delta_pick_matches_measured": delta_pick == delta_faster,
                        "pipeline_ms_per_commit": measured_ms}
     log(f"dispatch model at {COMMIT_SIGS} signatures, bucket {B} (calibrated in "
         f"{calibration_s:.3f} s): link {model['link_mbps']:.0f} MB/s; terms {model['terms']}")
-    for route in ("ladder", "rlc"):
+    for route in ("ladder", "rlc", "delta"):
         st = model[route]
         log(f"  {route}: host {st['host'] * 1e3:.3f} ms, wire {st['wire'] * 1e3:.3f} ms, device "
             f"{st['device'] * 1e3:.3f} ms -> modeled {model['t_' + route] * 1e3:.3f} ms a commit; "
             f"measured {measured_ms[route]:.3f} ms a commit in phase 4's pipeline")
     log(f"dispatch pick at {COMMIT_SIGS}: {pick}; faster in phase 4's pipelines: {faster} "
         f"({'matches' if pick == faster else 'does not match'}) [{card}]")
+    log(f"delta term's pick at {COMMIT_SIGS} (delta against the prehashed ladder): {delta_pick}; "
+        f"faster in phase 4's pipelines: {delta_faster} "
+        f"({'matches' if delta_pick == delta_faster else 'does not match'}; ladder "
+        f"{measured_ms['ladder']:.3f}, delta {measured_ms['delta']:.3f} ms a commit) [{card}]")
     return out
 
 
@@ -550,6 +711,7 @@ def main(argv=None) -> int:
     props = torch.cuda.get_device_properties(0)
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     mul_rate = INT32_MUL_PER_SM_CLK * props.multi_processor_count * sm_mhz * 1e6
+    int_rate = INT32_OPS_PER_SM_CLK * props.multi_processor_count * sm_mhz * 1e6
     log(f"SMs {props.multi_processor_count}, max SM clock {sm_mhz:.0f} MHz, "
         f"int32 multiply rate {mul_rate:.4g}/s")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -580,14 +742,16 @@ def main(argv=None) -> int:
     kern = {}
     per_lane = products_per_lane(8)  # accum_weight's is recounted at the commit's S below
 
-    def record(name, mism, err, kernel_fn, plain_fn, reps, batch, nbytes):
+    def record(name, mism, err, kernel_fn, plain_fn, reps, batch, nbytes, ops_s=None):
         """Time the kernel (CUDA events around back-to-back calls, and its
         device time alone from the profiler) and its plain version, and
-        compute the bound from this call's bytes and multiplies."""
+        compute the bound from this call's bytes and operations (by default
+        the field products' wide multiplies)."""
         ms = cuda_ms(kernel_fn, reps)
         device_ms = kernel_device_ms(kernel_fn, name, reps)
         plain_ms = cuda_ms(plain_fn, max(1, reps // 10))
-        ops_s = wide_muls(per_lane[name]) * batch / mul_rate
+        if ops_s is None:
+            ops_s = wide_muls(per_lane[name]) * batch / mul_rate
         bytes_s = nbytes / HBM_BYTES_PER_S
         kern[name] = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -595,7 +759,8 @@ def main(argv=None) -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None, "batch": batch, "device_only_ms": device_ms,
-            "field_products_per_lane": {"mul": per_lane[name][0], "sq": per_lane[name][1]},
+            **({"field_products_per_lane": {"mul": per_lane[name][0], "sq": per_lane[name][1]}}
+               if name in per_lane else {}),
             **regs[name],
         }
         log(f"check {name}: B={batch} mismatches={mism} max_abs_err={err} "
@@ -745,7 +910,7 @@ def main(argv=None) -> int:
            lambda: M.accumulate_weighted_plain(niels, gather_idx, gather_neg, weights), 20, M.WK,
            3 * 88 * n_pts + 2 * 4 * s_pad * M.WK + 4 * M.WK + 4 * 88 * M.WK)
     kern["accum_weight"].update(s_rounds=prep["s_rounds"], s_pad=s_pad)
-    del items, want, gather_idx, gather_neg, neg32, niels, weights, pts, encs
+    del want, gather_idx, gather_neg, neg32, niels, weights, pts, encs
 
     # the RLC tail on that commit: its weighted lanes (the accum_weight
     # output), region sums, total, and [8](msm + [c]B) by one ladder launch
@@ -801,13 +966,17 @@ def main(argv=None) -> int:
         f"latency floor {floor_ms(combine_stages):.4f} ms ({combine_stages} stages)")
     del got, sums, msm, tail, tail_a4, tail_r4
     torch.cuda.synchronize()
+    sha_phase(dev, args.seed, items, record, kern, mul_rate, int_rate)
+    del items
+    torch.cuda.synchronize()
 
     # ---- phase 4: the main path, counted, route by route
     # (a) the ladder route, pinned through the dispatch seam
     if COMMIT_SIGS < E.NATIVE_MAX:
         raise AssertionError("the phase's commits would take the native route")
-    seam = E._rlc_beats_ladder
+    seam, delta_seam = E._rlc_beats_ladder, E._delta_beats_prehashed
     E._rlc_beats_ladder = lambda n, b, device: False
+    E._delta_beats_prehashed = lambda n, b, device: False
     K.reset_launches()
     t0 = time.perf_counter()
     commits = [generate_signed_batch(COMMIT_SIGS, seed=args.seed + i, msg_len=100,
@@ -816,11 +985,11 @@ def main(argv=None) -> int:
     log(f"testgen: 2 x {COMMIT_SIGS} vote-shaped signatures on the card in {gen_s:.2f} s")
     cols = [to_columns(c) for c in commits]
 
-    def pipeline():
+    def pipeline(device_sha=False):
         """16 commits submitted back to back, then one collect_pending."""
         torch.cuda.synchronize()
         t_start = time.perf_counter()
-        pend = [submit_commit(cols[i % 2], dev) for i in range(PIPELINE_DEPTH)]
+        pend = [submit_commit(cols[i % 2], dev, device_sha) for i in range(PIPELINE_DEPTH)]
         t_sub = time.perf_counter()
         res = collect_pending(pend)
         t_end = time.perf_counter()
@@ -857,14 +1026,14 @@ def main(argv=None) -> int:
         rng.choice(np.arange(5, COMMIT_SIGS), ORACLE_SAMPLE - 5, replace=False).tolist())
     oracle = [ref.verify(*items[i]) for i in sample]
 
-    def check_bad_lanes(route, pending):
+    def check_bad_lanes(route, pending, want=expect, want_sample=oracle, what="bad-lane commit"):
         ok, bits = pending.result()
-        if ok or bits != expect:
-            wrong = [i for i, (g, w) in enumerate(zip(bits, expect)) if g != w]
-            raise AssertionError(f"{route} bad-lane commit: bitmap wrong at lanes {wrong[:20]}")
-        if [bits[i] for i in sample] != oracle:
+        if ok or bits != want:
+            wrong = [i for i, (g, w) in enumerate(zip(bits, want)) if g != w]
+            raise AssertionError(f"{route} {what}: bitmap wrong at lanes {wrong[:20]}")
+        if [bits[i] for i in sample] != want_sample:
             raise AssertionError(f"{route}: bitmap disagrees with ed25519_ref.verify on the sample")
-        log(f"{route} bad-lane commit: bitmap exact (lanes 0-2 rejected, torsion lanes 3-4 "
+        log(f"{route} {what}: bitmap exact (lanes 0-2 rejected, torsion lanes 3-4 "
             f"accepted); {ORACLE_SAMPLE}-lane sample agrees with ed25519_ref.verify")
 
     check_bad_lanes("ladder", submit_commit(bad_cols, dev))
@@ -897,7 +1066,7 @@ def main(argv=None) -> int:
                         "ladder_sub_mul8")
         rlc_counts = read_counts("RLC", tail_kernels)
     finally:
-        E._rlc_beats_ladder = seam
+        E._rlc_beats_ladder = lambda n, b, device: False
     accepted = rlc_counts["accum_weight"]  # one a commit the layout accepted
     if (rlc_counts["region_sum"] != accepted or rlc_counts["window_combine"] != accepted
             or rlc_counts["ladder_sub_mul8"] < accepted or rlc_counts["decompress"] < 2 * accepted):
@@ -912,12 +1081,65 @@ def main(argv=None) -> int:
     log(f"RLC pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold "
         f"{rlc_cold_s:.3f} s, warm {rlc_warm_s:.3f} s (submits {rlc_warm_submit_s:.3f} s) -> "
         f"{rlc_sigs_per_s:.0f} sigs/s on {card}")
-    log(f"sigs/s, warm, same call: ladder {sigs_per_s:.0f}, RLC {rlc_sigs_per_s:.0f} [{card}]")
     rlc_commits = 2 * PIPELINE_DEPTH + bad_submits
+
+    # (c) the device-SHA route and (d) the delta route, the RLC seam pinned
+    # False: the same commits and the bad-lane commit; on the device-SHA
+    # route also the bad-lane commit with two oversize lanes (5 valid, 6
+    # broken: 200-byte messages), which the host verifies at result()
+    seed5 = hashlib.sha256(b"oversize lane").digest()
+    big = rng.bytes(200)
+    over_items = list(items)
+    over_items[5] = (ref.pubkey_from_seed(seed5), big, ref.sign(seed5, big))
+    over_items[6] = (over_items[5][0], big[:-1] + b"!", over_items[5][2])
+    over_expect = expect[:5] + [True, False] + expect[7:]
+    if [ref.verify(*over_items[i]) for i in (5, 6)] != [True, False]:
+        raise AssertionError("the oversize lanes do not give the intended verdicts")
+    over_cols = to_columns(over_items)
+    over_oracle = [over_expect[i] if i in (5, 6) else o for i, o in zip(sample, oracle)]
+    sha_routes = {}
+    for route in ("device_sha", "delta"):
+        K.reset_launches()
+        device_sha = route == "device_sha"
+        E._delta_beats_prehashed = lambda n, b, device, pick=not device_sha: pick
+        r_cold_s, _ = pipeline(device_sha)
+        r_warm_s, r_warm_submit_s = pipeline(device_sha)
+        pending = submit_commit(bad_cols, dev, device_sha)
+        if pending._path != route:
+            raise AssertionError(f"the bad-lane commit took {pending._path}, not {route}")
+        check_bad_lanes(route, pending)
+        submits = 2 * PIPELINE_DEPTH + 1
+        if device_sha:
+            pending = submit_commit(over_cols, dev, True)
+            if pending._oversize_idx != [5, 6]:
+                raise AssertionError(f"oversize lanes {pending._oversize_idx}, not [5, 6]")
+            check_bad_lanes(route, pending, over_expect, over_oracle,
+                            "commit with oversize lanes 5-6 (5 accepted, 6 rejected on the host)")
+            submits += 1
+        r_counts = read_counts(route, SHA_KERNELS)
+        if r_counts["sha512_blocks"] != submits or r_counts["reduce512"] != submits:
+            raise AssertionError(f"{route}: {submits} commits but launches {r_counts}")
+        r_sigs = PIPELINE_DEPTH * COMMIT_SIGS / r_warm_s
+        log(f"{route} pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold "
+            f"{r_cold_s:.3f} s, warm {r_warm_s:.3f} s (submits {r_warm_submit_s:.3f} s) -> "
+            f"{r_sigs:.0f} sigs/s on {card}")
+        sha_routes[route] = {"sigs_per_s": r_sigs, "pipeline_warm_s": r_warm_s,
+                             "pipeline_cold_s": r_cold_s, "counts": r_counts, "commits": submits}
+    E._rlc_beats_ladder, E._delta_beats_prehashed = seam, delta_seam
+    route_sigs = {"ladder": sigs_per_s, "rlc": rlc_sigs_per_s,
+                  **{r: v["sigs_per_s"] for r, v in sha_routes.items()}}
+    log("sigs/s, warm, same call: " + ", ".join(f"{r} {v:.0f}" for r, v in route_sigs.items())
+        + f" [{card}]")
+    by_route = {"ladder": counts, "rlc": rlc_counts,
+                **{r: v["counts"] for r, v in sha_routes.items()}}
     for name in SOURCES:
-        kern[name]["launches"] = counts[name] + rlc_counts[name]
-        kern[name]["launches_by_route"] = {"ladder": counts[name], "rlc": rlc_counts[name]}
-    kern["decompress"]["launches_per_commit"] = {"ladder": 1, "rlc": 2}  # ladder: A once per set
+        kern[name]["launches"] = sum(c[name] for c in by_route.values())
+        kern[name]["launches_by_route"] = {r: c[name] for r, c in by_route.items()}
+    for name in ("sha512_blocks", "reduce512"):
+        kern[name]["launches_per_commit"] = {r: sha_routes[r]["counts"][name]
+                                             / sha_routes[r]["commits"] for r in sha_routes}
+    # the ladder and delta routes decompress A once per set
+    kern["decompress"]["launches_per_commit"] = {"ladder": 1, "rlc": 2, "device_sha": 2, "delta": 1}
     kern["ladder_sub_mul8"]["launches_per_commit"] = counts["ladder_sub_mul8"] / commits_verified
     for name in ("accum_weight", "region_sum", "window_combine"):
         kern[name]["launches_per_commit"] = rlc_counts[name] / rlc_commits
@@ -961,18 +1183,15 @@ def main(argv=None) -> int:
         f"{k} {v:.3f}" for k, v in stage.items()) + f" [{card}]")
 
     # where the device time of that commit goes, by kernel name
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        V.verify_batch_cached_a(ok_a, neg_a_cached, rsk, live)[1].item()
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
-    (OUT_DIR / "profile_commit.txt").write_text(table)
-    log(f"profile, one warm commit: {len(dev_events)} device kernels, {busy_ms:.3f} ms busy")
+    n_kernels, busy_ms, by_kernel, table = profile_commit(
+        lambda: V.verify_batch_cached_a(ok_a, neg_a_cached, rsk, live)[1].item(),
+        "profile_commit.txt")
+    log(f"profile, one warm commit: {n_kernels} device kernels ({by_kernel}), "
+        f"{busy_ms:.3f} ms busy")
     for ln in table.splitlines()[:16]:
         log("profile:", ln)
-    stage["profiled_device_kernels"] = len(dev_events)
+    stage["profiled_device_kernels"] = n_kernels
+    stage["profiled_kernels_by_name"] = by_kernel
     stage["profiled_device_busy_ms"] = busy_ms
 
     # the RLC route's stage split, the same warm commit
@@ -1010,34 +1229,80 @@ def main(argv=None) -> int:
     rlc_stage["h2d_bytes_per_lane"] = buf_host.numel() / n_lanes
     log("RLC stage split, one warm 10,000-signature commit: " + ", ".join(
         f"{k} {v:.3f}" for k, v in rlc_stage.items()) + f" [{card}]")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        E.verify_rlc_packed(buf, fields, s_commit).item()
-    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_kernel = {name: sum(1 for e in dev_events if f"{name}_kernel" in e.name)
-                 for name in SOURCES}
-    busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
-    (OUT_DIR / "profile_rlc_commit.txt").write_text(table)
-    log(f"profile, one warm RLC commit: {len(dev_events)} device kernels ({by_kernel}), "
+    n_kernels, busy_ms, by_kernel, table = profile_commit(
+        lambda: E.verify_rlc_packed(buf, fields, s_commit).item(), "profile_rlc_commit.txt")
+    log(f"profile, one warm RLC commit: {n_kernels} device kernels ({by_kernel}), "
         f"{busy_ms:.3f} ms busy")
     for ln in table.splitlines()[:16]:
         log("profile:", ln)
-    rlc_stage["profiled_device_kernels"] = len(dev_events)
+    rlc_stage["profiled_device_kernels"] = n_kernels
     rlc_stage["profiled_kernels_by_name"] = by_kernel
     rlc_stage["profiled_device_busy_ms"] = busy_ms
-    if len(dev_events) >= RLC_MAX_DEVICE_KERNELS:
-        raise AssertionError(f"one RLC commit ran {len(dev_events)} device kernels, "
+    if n_kernels >= RLC_MAX_DEVICE_KERNELS:
+        raise AssertionError(f"one RLC commit ran {n_kernels} device kernels, "
                              f"not under {RLC_MAX_DEVICE_KERNELS}")
 
+    # the device-SHA and delta routes' stage splits, the same warm commit
+    for route, r in sha_routes.items():
+        bv = E.Ed25519BatchVerifier(dev, device_sha=route == "device_sha")
+        bv.add_batch(pubs, sigs, blob, lens)
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "device_sha":
+            buf_host, fields, _ = bv._pack_device_sha(n_lanes, bucket)
+        else:
+            buf_host, fields = bv._pack_delta(E._detect_delta(bv._msg_buf, bv._msg_lens))
+        st["host_pack_ms"] = (time.perf_counter() - t0) * 1e3
+        if route == "delta":
+            ok_a, neg_a_cached, a_enc = bv._pubkeys_on_device(n_lanes, bucket, with_encodings=True)
+        torch.cuda.synchronize()
+        ev[0].record()
+        buf = buf_host.to(dev, non_blocking=True)
+        ev[1].record()
+        t = E.unpack_fields(buf, fields)
+        if route == "device_sha":
+            def run():
+                return V.verify_batch(t["a"], t["r"], t["s"], t["words"], t["two"], t["live"])
+        else:
+            def run():
+                return V.verify_batch_delta(ok_a, neg_a_cached, a_enc, t["packed"], t["meta"])
+        all_ok = run()[1]
+        ev[2].record()
+        torch.cuda.synchronize()
+        st["h2d_ms"] = ev[0].elapsed_time(ev[1])
+        st["device_ms"] = ev[1].elapsed_time(ev[2])
+        t0 = time.perf_counter()
+        if not bool(all_ok.item()):
+            raise AssertionError(f"{route} stage-split commit did not verify")
+        st["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+        st["kernels_ms"] = (kern["sha512_blocks"]["ms"] + kern["reduce512"]["ms"]
+                            + kern["decompress"]["ms"] * (2 if route == "device_sha" else 1)
+                            + kern["ladder_sub_mul8"]["ms"])
+        st["torch_glue_ms"] = st["device_ms"] - st["kernels_ms"]
+        st["h2d_bytes_per_lane"] = buf_host.numel() / n_lanes
+        log(f"{route} stage split, one warm 10,000-signature commit: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items()) + f" [{card}]")
+        n_kernels, busy_ms, by_kernel, _ = profile_commit(
+            lambda: run()[1].item(), f"profile_{route}_commit.txt", SHA_KERNELS)
+        st.update(profiled_device_kernels=n_kernels, profiled_kernels_by_name=by_kernel,
+                  profiled_device_busy_ms=busy_ms)
+        log(f"profile, one warm {route} commit: {n_kernels} device kernels ({by_kernel}), "
+            f"{busy_ms:.3f} ms busy")
+        launched = {**dict.fromkeys(SHA_KERNELS, 1),
+                    "decompress": 2 if route == "device_sha" else 1}
+        if by_kernel != launched:
+            log(f"profile of the {route} commit: kernels {by_kernel}, launched {launched}")
+        r["stage"] = st
+
     # ---- phase 5: the native host engine
-    host = host_engine_phase(dev, card, args.seed, commits[0], items, expect,
-                             {"ladder": sigs_per_s, "rlc": rlc_sigs_per_s})
+    host = host_engine_phase(dev, card, args.seed, commits[0], items, expect, route_sigs)
 
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
-                   rlc_counts=rlc_counts, host_engine=host)
+                   rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))
 
     # ---- phase 6 and 7: the kernel line, the card, the contract line

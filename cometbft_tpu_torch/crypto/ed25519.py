@@ -19,6 +19,25 @@ default:
 - `PendingBatch` / `collect_pending` fetch one all-ok scalar per batch,
   and the bitmap only when that scalar says some lane failed.
 
+Two more device routes hash on the device, through the `sha512_blocks`
+and `reduce512` kernels (`ops.ed25519_verify.verify_batch` and
+`verify_batch_delta`):
+
+- `device_sha=True` (`_launch_device_sha`): a, r, s, the SHA-512-padded
+  R||A||M words, the two-block flags and the live mask cross in one
+  pinned buffer (~362 B a lane). A lane whose R||A||M exceeds two blocks
+  goes out with live=False and is verified on the host at result()
+  (`PendingBatch`'s oversize lanes);
+- the structured wire, `delta` (`_launch_device_delta`): when the
+  batch's messages share a prefix and a suffix (commit sign bytes differ
+  per lane only in the vote timestamp; `_detect_delta`), R||S plus the
+  per-lane middle bytes cross (~75 B a lane) and the device rebuilds
+  and hashes the messages; the pubkey encodings stay on the device with
+  the decompressed points. The ladder route takes it for DELTA_MIN <= n
+  and buckets up to DELTA_MAX_BUCKET when `_delta_beats_prehashed(n,
+  bucket, device)` says so (the calibrated model on a GPU, never on the
+  CPU).
+
 The RLC/MSM route (`_launch_rlc`) verifies the whole batch as one
 multi-scalar multiplication (`ops.msm`): the host lays out the digit
 stream (`crypto.rlc.prepare`), one pinned buffer crosses to the device,
@@ -50,7 +69,16 @@ import time
 import numpy as np
 import torch
 
-from ..ops.ed25519_verify import decompress_pubkeys, verify_batch_cached_a
+from ..ops import sha512 as _sha
+from ..ops.ed25519_verify import (
+    DELTA_META_HEADER,
+    DELTA_META_LEN,
+    DELTA_PMAX,
+    decompress_pubkeys,
+    verify_batch,
+    verify_batch_cached_a,
+    verify_batch_delta,
+)
 from ..ops.msm import rlc_verify_stream
 from ..utils import trace as _trace
 from ..utils.metrics import crypto_metrics
@@ -77,13 +105,21 @@ RLC_MIN = 4096
 # route (the seam that forces the device routes).
 NATIVE_MAX = 1024
 
+# The structured-wire (delta) route is considered for DELTA_MIN <= n and
+# buckets up to DELTA_MAX_BUCKET (the reference's bounds, so that the same
+# batches are eligible).
+DELTA_MIN = 256
+DELTA_MAX_BUCKET = 16384
+
 _L = ref.L
 # big-endian bytes of the group order, for the vectorized S < L precheck
 _L_BE = np.frombuffer(_L.to_bytes(32, "big"), np.uint8)
 
 # (sha256(pubkey column), bucket, device) -> device-resident (ok_a, neg_a)
-# from ops.ed25519_verify.decompress_pubkeys; shared by every verifier in
-# the process, since consumers build a fresh verifier per commit.
+# from ops.ed25519_verify.decompress_pubkeys; the delta route's entries,
+# keyed (sha256, bucket, "delta", device), also hold the encodings. Shared
+# by every verifier in the process, since consumers build a fresh verifier
+# per commit.
 _A_CACHE: dict = {}
 _A_CACHE_SIZE = 4
 _A_LOCK = threading.Lock()
@@ -92,8 +128,8 @@ _A_LOCK = threading.Lock()
 # ---------------------------------------------------------------- dispatch
 
 # Wire bytes a lane of the ladder route (R||S||k; the pubkeys cross once
-# per validator set). The RLC route's bytes are those of its packed
-# buffer at the bucket, read when the bucket's terms are timed.
+# per validator set). The RLC and delta routes' bytes are those of their
+# packed buffers at the bucket, read when the bucket's terms are timed.
 _WIRE_LADDER_B = 96
 
 _LINK_MBPS: dict[str, float] = {}  # str(device) -> MB/s
@@ -144,37 +180,47 @@ def _timed_launch(fn, dev: torch.device) -> tuple[float, float]:
 
 
 def _calibrate(b: int, dev: torch.device) -> dict:
-    """Both device routes' stages, timed on a throwaway batch of b random
-    lanes (100-byte messages, S < 2^252 so that no lane fails the
-    precheck; the halves take the same time whether or not a signature
-    verifies):
+    """The device routes' stages, timed on a throwaway batch of b random
+    lanes (vote-shaped 100-byte messages: a shared 76-byte prefix and
+    16-byte suffix around 8 bytes a lane, as `crypto.testgen` makes them;
+    S < 2^252 so that no lane fails the precheck; the halves take the same
+    time whether or not a signature verifies):
 
     - host: the verifier's own pack of each route (`_pack_rsk`,
-      `_pack_rlc`), best of two, per lane. The reference times its
-      packers at 1,024 lanes once per process; at 1,024 the native RLC
-      packer's fixed costs overstated its cost a lane at 10,000 by
-      1.6-2.3x on the H100's host, so the port times them at the bucket;
+      `_pack_rlc`, and `_detect_delta` with `_pack_delta`), best of two,
+      per lane. The reference times its packers at 1,024 lanes once per
+      process; at 1,024 the native RLC packer's fixed costs overstated its
+      cost a lane at 10,000 by 1.6-2.3x on the H100's host, so the port
+      times them at the bucket;
     - issue and device: one warm call of each route's device half, the
       host time its launches take to issue and its CUDA-event time;
-    - the RLC route's packed-buffer bytes.
+    - the RLC and delta routes' packed-buffer bytes.
     """
     rng = np.random.default_rng(b)
     sigs = rng.integers(0, 256, (b, 64), dtype=np.uint8)
     sigs[:, 63] &= 0x0F
+    msgs = np.concatenate([np.broadcast_to(rng.integers(0, 256, 76, dtype=np.uint8), (b, 76)),
+                           rng.integers(0, 256, (b, 8), dtype=np.uint8),
+                           np.broadcast_to(rng.integers(0, 256, 16, dtype=np.uint8), (b, 16))],
+                          axis=1)
     bv = Ed25519BatchVerifier(dev, force_perlane=True)
-    bv.add_batch(rng.integers(0, 256, (b, 32), dtype=np.uint8), sigs,
-                 rng.integers(0, 256, b * 100, dtype=np.uint8).tobytes(), np.full(b, 100))
+    bv.add_batch(rng.integers(0, 256, (b, 32), dtype=np.uint8), sigs, msgs.tobytes(),
+                 np.full(b, 100))
     pack_s, rsk_host = _best_s(lambda: bv._pack_rsk(b, b))
     rsk = rsk_host.to(dev, non_blocking=True)
-    a_host, view = bv._host_buffer((b, 32))
-    view[:] = np.frombuffer(bv._pub_buf, np.uint8).reshape(b, 32)
-    ok_a, neg_a = decompress_pubkeys(a_host.to(dev, non_blocking=True))
+    ok_a, neg_a, a_enc = bv._decompress_pubkeys(b, b, with_encodings=True)
     live = torch.ones(b, dtype=torch.bool, device=dev)
     ladder_issue, ladder_s = _timed_launch(
         lambda: verify_batch_cached_a(ok_a, neg_a, rsk, live), dev)
     terms = {"ladder_us": pack_s / b * 1e6, "ladder_issue_s": ladder_issue, "ladder_s": ladder_s,
              "rlc_us": float("inf"), "rlc_issue_s": 0.0, "rlc_s": float("inf"), "rlc_wire_b": 0,
              "rlc_native": native.rlc_available(), "rlc_threads": native.rlc_packer_threads()}
+    pack_s, (buf_host, fields) = _best_s(
+        lambda: bv._pack_delta(_detect_delta(bv._msg_buf, bv._msg_lens)))
+    t = unpack_fields(buf_host.to(dev, non_blocking=True), fields)
+    terms["delta_issue_s"], terms["delta_s"] = _timed_launch(
+        lambda: verify_batch_delta(ok_a, neg_a, a_enc, t["packed"], t["meta"]), dev)
+    terms.update(delta_us=pack_s / b * 1e6, delta_wire_b=buf_host.numel())
     for _ in range(5):  # the layout draws z afresh and may decline
         pack_s, packed = _best_s(bv._pack_rlc)
         if packed is not None:
@@ -194,7 +240,7 @@ def _terms(b: int, dev: torch.device) -> dict:
     if key not in _TERMS:
         _TERMS[key] = _calibrate(b, dev)
         cm = crypto_metrics()
-        for term in ("ladder_us", "rlc_us"):
+        for term in ("ladder_us", "rlc_us", "delta_us"):
             cm.calibration_us_per_sig.set(_TERMS[key][term], term)
     return _TERMS[key]
 
@@ -204,16 +250,19 @@ def dispatch_model(n: int, b: int, device="cuda") -> dict:
     each device route of a CUDA `device`. A route's pipelined time is that
     of its slowest stage: host (its pack, per lane, then issuing its
     launches: the same thread does both), wire (bytes over the probed
-    link) or device (the bucket's event-timed device half)."""
+    link) or device (the bucket's event-timed device half). The delta
+    route's wire is its packed buffer at the calibration batch's middle
+    width (8 bytes a lane, as vote sign bytes have it)."""
     dev = torch.device(device)
     bw = _link_mbps(dev) * 1e6
     t = _terms(b, dev)
-    ladder = {"wire": _WIRE_LADDER_B * b / bw, "device": t["ladder_s"],
-              "host": n * t["ladder_us"] * 1e-6 + t["ladder_issue_s"]}
-    rlc = {"wire": t["rlc_wire_b"] / bw, "device": t["rlc_s"],
-           "host": n * t["rlc_us"] * 1e-6 + t["rlc_issue_s"]}
-    return {"link_mbps": _LINK_MBPS[str(dev)], "terms": t, "ladder": ladder, "rlc": rlc,
-            "t_ladder": max(ladder.values()), "t_rlc": max(rlc.values())}
+    routes = {"ladder": {"wire": _WIRE_LADDER_B * b / bw, "device": t["ladder_s"],
+                         "host": n * t["ladder_us"] * 1e-6 + t["ladder_issue_s"]}}
+    for r in ("rlc", "delta"):
+        routes[r] = {"wire": t[f"{r}_wire_b"] / bw, "device": t[f"{r}_s"],
+                     "host": n * t[f"{r}_us"] * 1e-6 + t[f"{r}_issue_s"]}
+    return {"link_mbps": _LINK_MBPS[str(dev)], "terms": t, **routes,
+            **{f"t_{r}": max(st.values()) for r, st in routes.items()}}
 
 
 def _rlc_beats_ladder(n: int, b: int, device) -> bool:
@@ -224,6 +273,16 @@ def _rlc_beats_ladder(n: int, b: int, device) -> bool:
         return False
     m = dispatch_model(n, b, device)
     return m["t_rlc"] < m["t_ladder"]
+
+
+def _delta_beats_prehashed(n: int, b: int, device) -> bool:
+    """Whether the structured-wire (delta) route should take an n-lane
+    batch in bucket b instead of the prehashed ladder: by the calibrated
+    model on a GPU; never on the CPU."""
+    if torch.device(device).type != "cuda":
+        return False
+    m = dispatch_model(n, b, device)
+    return m["t_delta"] < m["t_ladder"]
 
 
 def _pack_rsk_rows(n: int, sig_blob, pub_blob, msg_blob, msg_lens, out: np.ndarray) -> None:
@@ -299,12 +358,17 @@ def _resolve_device(device) -> torch.device:
 
 class Ed25519BatchVerifier(BatchVerifier):
     """Batch verifier on `device` ("cuda" by default; "cpu" runs the
-    kernels' plain PyTorch versions)."""
+    kernels' plain PyTorch versions). `device_sha=True` sends every device
+    batch to the device-SHA route."""
 
-    def __init__(self, device="cuda", force_perlane: bool = False):
+    def __init__(self, device="cuda", force_perlane: bool = False, device_sha: bool = False):
         self.device = _resolve_device(device)
         # pins the per-lane ladder route (the RLC route's blame rerun)
         self._force_perlane = force_perlane
+        self._device_sha = device_sha
+        self._delta = None  # memoized _detect_delta of the queued messages
+        self._device_path = "ladder"  # the device route the last launch took
+        self._oversize: list[int] = []  # lanes of the last launch verified on the host
         self._precheck_fail: list[bool] = []
         # wire blobs accumulate at add() time (one memcpy per add instead
         # of a join sweep at submit)
@@ -333,6 +397,7 @@ class Ed25519BatchVerifier(BatchVerifier):
             sig_rows = sig_rows.copy()
             sig_rows[bad] = 0
         self._precheck_fail.extend(bad.tolist())
+        self._delta = None
         self._pub_buf += pub_rows.tobytes()
         self._sig_buf += sig_rows.tobytes()
         self._msg_buf += msg_blob
@@ -347,6 +412,7 @@ class Ed25519BatchVerifier(BatchVerifier):
         pub = pub_key.bytes()
         sig_eff = sig if ok else b"\x00" * 64
         self._precheck_fail.append(not ok)
+        self._delta = None
         self._pub_buf += pub
         self._sig_buf += sig_eff
         self._msg_buf += msg
@@ -362,6 +428,7 @@ class Ed25519BatchVerifier(BatchVerifier):
         [start, end) the absorbed lanes occupy here. `other` is left as
         it was."""
         start = self.count()
+        self._delta = None
         self._precheck_fail.extend(other._precheck_fail)
         self._pub_buf += other._pub_buf
         self._sig_buf += other._sig_buf
@@ -402,8 +469,11 @@ class Ed25519BatchVerifier(BatchVerifier):
                     path = "rlc"
         if pending is None:
             bits, all_ok = self._launch_device()
+            path = self._device_path
             # snapshot: the verifier may be reused after submit()
-            pending = PendingBatch(bits, all_ok, n, list(self._precheck_fail))
+            items = self._items() if self._oversize else []
+            pending = PendingBatch(bits, all_ok, n, list(self._precheck_fail),
+                                   [items[i] for i in self._oversize], list(self._oversize))
         self._record_dispatch(path, n, t0, pending)
         return pending
 
@@ -420,7 +490,7 @@ class Ed25519BatchVerifier(BatchVerifier):
         pending._t0 = t0
         if _trace.enabled:
             fields = {"path": path, "n": n}
-            if path != "native" and self.device.type == "cuda":
+            if path in ("ladder", "rlc", "delta") and self.device.type == "cuda":
                 mdl = dispatch_model(n, _bucket(n), self.device)
                 stages = mdl[path]
                 fields.update(model_host_ms=round(stages["host"] * 1e3, 3),
@@ -450,6 +520,21 @@ class Ed25519BatchVerifier(BatchVerifier):
         t = torch.zeros(shape, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
         return t, t.numpy()
 
+    def _field_buffer(self, specs: dict) -> tuple[torch.Tensor, dict, dict]:
+        """One zeroed (pinned, for a GPU) uint8 buffer laid out for the
+        fields {name: (numpy dtype, shape)}, each 16-byte aligned (the SHA
+        kernels read rows as 16-byte loads). Returns (buffer, fields for
+        `unpack_fields`, {name: numpy view to pack in place})."""
+        fields, off = {}, 0
+        for k, (dt, shape) in specs.items():
+            dt = np.dtype(dt)
+            fields[k] = (off, dt, tuple(shape))
+            off += -(-int(np.prod(shape)) * dt.itemsize // 16) * 16
+        buf, view = self._host_buffer((off,))
+        views = {k: view[o : o + int(np.prod(shape)) * dt.itemsize].view(dt).reshape(shape)
+                 for k, (o, dt, shape) in fields.items()}
+        return buf, fields, views
+
     def _pack_rsk(self, n: int, b: int) -> torch.Tensor:
         """(b, 96) R||S||k rows, k = SHA-512(R||A||M) mod L hashed here."""
         rsk, view = self._host_buffer((b, 96))
@@ -457,15 +542,25 @@ class Ed25519BatchVerifier(BatchVerifier):
                        np.asarray(self._msg_lens, np.uint64), view)
         return rsk
 
-    def _pubkeys_on_device(self, n: int, b: int):
-        """Cached (ok_a, neg_a) for this verifier's pubkey column."""
+    def _decompress_pubkeys(self, n: int, b: int, with_encodings: bool = False) -> tuple:
+        """(ok_a, neg_a), and the (b, 32) encodings on the device when asked,
+        of this verifier's pubkey column, padded to b lanes."""
+        a_host, view = self._host_buffer((b, 32))
+        view[:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
+        a_dev = a_host.to(self.device, non_blocking=True)
+        ok_a, neg_a = decompress_pubkeys(a_dev)
+        return (ok_a, neg_a, a_dev) if with_encodings else (ok_a, neg_a)
+
+    def _pubkeys_on_device(self, n: int, b: int, with_encodings: bool = False) -> tuple:
+        """`_decompress_pubkeys`, cached per pubkey column, bucket and device
+        (and apart for the delta route, whose entries hold the encodings)."""
         fp = (hashlib.sha256(self._pub_buf).digest(), b, str(self.device))
+        if with_encodings:
+            fp = fp[:2] + ("delta",) + fp[2:]
         with _A_LOCK:
             cached = _A_CACHE.get(fp)
         if cached is None:
-            a_host, view = self._host_buffer((b, 32))
-            view[:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
-            cached = decompress_pubkeys(a_host.to(self.device, non_blocking=True))
+            cached = self._decompress_pubkeys(n, b, with_encodings)
             with _A_LOCK:
                 _A_CACHE[fp] = cached
                 while len(_A_CACHE) > _A_CACHE_SIZE:
@@ -473,14 +568,102 @@ class Ed25519BatchVerifier(BatchVerifier):
         return cached
 
     def _launch_device(self):
-        """Pack and hash on the host, copy R||S||k over, launch the kernels;
-        returns the un-fetched (bits, all_ok) device tensors."""
+        """The per-lane routes: the device-SHA route when the verifier asks
+        for it; else the delta route when the model prefers it and the
+        messages share a prefix and suffix; else the prehashed ladder (pack
+        and hash on the host, copy R||S||k over). Returns the un-fetched
+        (bits, all_ok) device tensors; `_device_path` names the route and
+        `_oversize` the lanes left to the host."""
+        self._device_path, self._oversize = "ladder", []
         n = self.count()
         b = _bucket(n)
+        if self._device_sha:
+            self._device_path = "device_sha"
+            return self._launch_device_sha(n, b)
+        if DELTA_MIN <= n and b <= DELTA_MAX_BUCKET and _delta_beats_prehashed(n, b, self.device):
+            if self._delta is None:
+                self._delta = _detect_delta(self._msg_buf, self._msg_lens) or False
+            if self._delta:
+                self._device_path = "delta"
+                return self._launch_device_delta(self._delta)
         rsk = self._pack_rsk(n, b).to(self.device, non_blocking=True)
         ok_a, neg_a = self._pubkeys_on_device(n, b)
         live = torch.arange(b, device=self.device) < n
         return verify_batch_cached_a(ok_a, neg_a, rsk, live)
+
+    def _pack_device_sha(self, n: int, b: int) -> tuple[torch.Tensor, dict, list[int]]:
+        """Host half of the device-SHA route: A, R, S, the SHA-512-padded
+        R||A||M words, the two-block flags and the live mask in one buffer,
+        vectorized when every message has one length (commit sign bytes)
+        and through `sha512.pad_messages` otherwise. A lane whose R||A||M
+        exceeds MAX_INPUT_BYTES goes out dead. Returns (buffer, fields,
+        the oversize lanes)."""
+        buf, fields, v = self._field_buffer({
+            "a": (np.uint8, (b, 32)), "r": (np.uint8, (b, 32)), "s": (np.uint8, (b, 32)),
+            "words": (np.uint32, (b, _sha.PADDED_WORDS)), "two": (np.bool_, (b,)),
+            "live": (np.bool_, (b,))})
+        pub = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
+        sig = np.frombuffer(self._sig_buf, np.uint8).reshape(n, 64)
+        v["a"][:n] = pub
+        v["r"][:n] = sig[:, :32]
+        v["s"][:n] = sig[:, 32:]
+        v["live"][:n] = True
+        lens = np.asarray(self._msg_lens, np.int64)
+        oversize = []
+        if n and (lens == lens[0]).all() and 64 + lens[0] <= _sha.MAX_INPUT_BYTES:
+            pre = np.concatenate([sig[:, :32], pub, np.frombuffer(self._msg_buf, np.uint8)
+                                  .reshape(n, int(lens[0]))], axis=1)
+            v["words"][:n], v["two"][:n] = _sha.pad_rows(pre)
+        else:
+            preimages = []
+            for i, (p, m, sg) in enumerate(self._items()):
+                pre = sg[:32] + p + m
+                if len(pre) > _sha.MAX_INPUT_BYTES:
+                    oversize.append(i)  # verified on the host at result()
+                    pre = b""
+                    v["live"][i] = False
+                preimages.append(pre)
+            v["words"][:n], v["two"][:n] = _sha.pad_messages(preimages)
+        return buf, fields, oversize
+
+    def _launch_device_sha(self, n: int, b: int):
+        """Device-SHA route: one pinned buffer over, then SHA-512, the
+        reduction mod L, `decompress` and the ladder on the device."""
+        buf, fields, self._oversize = self._pack_device_sha(n, b)
+        t = unpack_fields(buf.to(self.device, non_blocking=True), fields)
+        return verify_batch(t["a"], t["r"], t["s"], t["words"], t["two"], t["live"])
+
+    def _pack_delta(self, d: dict) -> tuple[torch.Tensor, dict]:
+        """Host half of the delta route, from `_detect_delta`'s dict d: the
+        (b, 64 + midmax + 1) rows R || S || middle bytes || middle length,
+        and the meta row [plen, slen, n (3 bytes), pad, prefix, suffix], in
+        one buffer."""
+        n = self.count()
+        b = _bucket(n)
+        midmax, lcp, lcs = d["midmax"], d["lcp"], d["lcs"]
+        buf, fields, v = self._field_buffer({"packed": (np.uint8, (b, 64 + midmax + 1)),
+                                             "meta": (np.uint8, (DELTA_META_LEN,))})
+        packed, meta = v["packed"], v["meta"]
+        packed[:n, :64] = np.frombuffer(self._sig_buf, np.uint8).reshape(n, 64)
+        take = min(midmax, d["arr"].shape[1] - lcp)
+        if take > 0:
+            packed[:n, 64 : 64 + take] = d["arr"][:, lcp : lcp + take]
+        packed[:n, -1] = d["mid_lens"]
+        meta[:5] = (lcp, lcs, n & 0xFF, (n >> 8) & 0xFF, (n >> 16) & 0xFF)
+        h = DELTA_META_HEADER
+        meta[h : h + lcp] = d["arr"][0, :lcp]
+        l0 = int(d["lens"][0])
+        meta[h + DELTA_PMAX : h + DELTA_PMAX + lcs] = d["arr"][0, l0 - lcs : l0]
+        return buf, fields
+
+    def _launch_device_delta(self, d: dict):
+        """Delta route: R||S and the middle bytes over; the prefix, suffix and
+        pubkey encodings rebuild the messages on the device."""
+        n = self.count()
+        buf, fields = self._pack_delta(d)
+        t = unpack_fields(buf.to(self.device, non_blocking=True), fields)
+        ok_a, neg_a, a_enc = self._pubkeys_on_device(n, _bucket(n), with_encodings=True)
+        return verify_batch_delta(ok_a, neg_a, a_enc, t["packed"], t["meta"])
 
     def _pack_rlc(self, z16=None):
         """Host half of the RLC route: the digit layout (`rlc.prepare`) and
@@ -500,23 +683,15 @@ class Ed25519BatchVerifier(BatchVerifier):
         s_pad = 8
         while s_pad < prep["s_rounds"]:
             s_pad *= 2
-        a = np.zeros((b, 32), np.uint8)
-        a[:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
-        r = np.zeros((b, 32), np.uint8)
-        r[:n] = np.frombuffer(self._sig_buf, np.uint8).reshape(n, 64)[:, :32]
-        live = np.zeros(b, np.uint8)
-        live[:n] = ~skip
-        arrays = {"a": a, "r": r, "live": live,
-                  **{k: prep[k] for k in ("stream", "stream_neg", "counts", "weights",
-                                          "c_digits")}}
-        fields, off = {}, 0
+        arrays = {k: prep[k] for k in ("stream", "stream_neg", "counts", "weights", "c_digits")}
+        buf, fields, v = self._field_buffer({
+            "a": (np.uint8, (b, 32)), "r": (np.uint8, (b, 32)), "live": (np.uint8, (b,)),
+            **{k: (arr.dtype, arr.shape) for k, arr in arrays.items()}})
+        v["a"][:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
+        v["r"][:n] = np.frombuffer(self._sig_buf, np.uint8).reshape(n, 64)[:, :32]
+        v["live"][:n] = ~skip
         for k, arr in arrays.items():
-            fields[k] = (off, arr.dtype, arr.shape)
-            off += -(-arr.nbytes // 4) * 4  # 4-byte aligned, for the int32 views
-        buf, view = self._host_buffer((off,))
-        for k, arr in arrays.items():
-            o = fields[k][0]
-            view[o : o + arr.nbytes] = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+            v[k][...] = arr
         return buf, fields, s_pad
 
     def _launch_rlc(self):
@@ -537,13 +712,17 @@ class Ed25519BatchVerifier(BatchVerifier):
 # numpy dtype of a packed field -> the torch dtype its bytes are viewed as.
 # Stream indices are viewed signed (torch's unsigned 16- and 32-bit types
 # have few operators); that is exact, since the layout keeps uint16
-# indices <= 0x7FFF and uint32 indices far below 2^31.
+# indices <= 0x7FFF and uint32 indices far below 2^31. The device-SHA
+# route's uint32 message words are viewed as int32 bit patterns, which
+# the SHA-512 kernel and its plain version take as they are.
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.int16,
-                 np.dtype(np.uint32): torch.int32, np.dtype(np.int32): torch.int32}
+                 np.dtype(np.uint32): torch.int32, np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
 
 
-def unpack_rlc(buf: torch.Tensor, fields: dict) -> dict:
-    """Views of the fields of a buffer packed by `_pack_rlc`, on its device."""
+def unpack_fields(buf: torch.Tensor, fields: dict) -> dict:
+    """Views of the fields of a buffer packed by `_field_buffer`, on its
+    device."""
     out = {}
     for k, (off, dt, shape) in fields.items():
         nbytes = int(np.prod(shape)) * dt.itemsize
@@ -554,7 +733,7 @@ def unpack_rlc(buf: torch.Tensor, fields: dict) -> dict:
 def verify_rlc_packed(buf: torch.Tensor, fields: dict, s_pad: int) -> torch.Tensor:
     """The device half of the RLC route on a buffer from `_pack_rlc`
     (already on the device). Returns the all-ok scalar, on the device."""
-    t = unpack_rlc(buf, fields)
+    t = unpack_fields(buf, fields)
     return rlc_verify_stream(
         t["a"], t["r"], t["live"] != 0, t["stream"], t["stream_neg"], t["counts"],
         t["weights"], t["c_digits"], s_rounds=s_pad)
@@ -576,24 +755,32 @@ class PendingBatch:
     Holds a snapshot of the per-batch host state, so the originating
     verifier can be reused after submit(). The happy path fetches only the
     device-reduced all-ok scalar; the bitmap transfers only when some lane
-    failed."""
+    failed. Lanes the device could not hash (the device-SHA route's
+    messages over two blocks, which went out dead) are verified here on
+    the host with `ed25519_ref.verify`, as the reference does."""
 
-    __slots__ = ("_dev", "_all_ok", "_n", "_precheck_fail", "_path", "_t0")
+    __slots__ = ("_dev", "_all_ok", "_n", "_precheck_fail", "_oversize_items",
+                 "_oversize_idx", "_path", "_t0")
 
-    def __init__(self, dev, all_ok, n, precheck_fail):
+    def __init__(self, dev, all_ok, n, precheck_fail, oversize_items, oversize_idx):
         self._dev = dev
         self._all_ok = all_ok
         self._n = n
         self._precheck_fail = precheck_fail
+        self._oversize_items = oversize_items
+        self._oversize_idx = oversize_idx
         self._path = None
         self._t0 = None
 
     def _finalize_fast(self, dev_all_ok: bool) -> tuple[bool, list[bool]]:
         _observe_latency(self)
         if dev_all_ok and not any(self._precheck_fail):
-            return True, [True] * self._n
-        bits = self._dev[: self._n].cpu().tolist()
-        out = [bool(x) and not bad for x, bad in zip(bits, self._precheck_fail)]
+            out = [True] * self._n
+        else:
+            bits = self._dev[: self._n].cpu().tolist()
+            out = [bool(x) and not bad for x, bad in zip(bits, self._precheck_fail)]
+        for i, item in zip(self._oversize_idx, self._oversize_items):
+            out[i] = not self._precheck_fail[i] and ref.verify(*item)
         return all(out), out
 
     def result(self) -> tuple[bool, list[bool]]:
@@ -665,6 +852,43 @@ def collect_pending(pendings) -> list[tuple[bool, list[bool]]]:
         for i, v in zip(idx, vals):
             summaries[i] = bool(v)
     return [p._finalize_fast(s) for p, s in zip(pendings, summaries)]
+
+
+def _detect_delta(msg_blob, msg_lens):
+    """Longest common prefix and suffix of a batch's messages (the
+    columnar blob and lengths), vectorized. Commit sign bytes differ per
+    lane only in the vote timestamp, so the device rebuilds each message
+    (`ops.ed25519_verify.build_delta_msgs`) from ~8-16 bytes a lane.
+    Returns the reference's packing dict (`arr`, `lens`, `lcp`, `lcs`,
+    `midmax`, `mid_lens`), or None when the messages do not share enough
+    structure to beat the 96 B/lane R||S||k rows."""
+    n = len(msg_lens)
+    if n == 0:
+        return None
+    lens = np.asarray(msg_lens, np.int64)
+    maxlen = int(lens.max())
+    minlen = int(lens.min())
+    if minlen == 0 or maxlen > _sha.MAX_INPUT_BYTES - 64:
+        return None
+    flat = np.frombuffer(msg_blob, np.uint8)
+    off = np.concatenate([[0], np.cumsum(lens)])
+    idx = off[:-1, None] + np.arange(maxlen)[None, :]
+    arr = flat[np.clip(idx, 0, len(flat) - 1)] * (
+        np.arange(maxlen) < lens[:, None]).astype(np.uint8)
+    inrange = np.arange(maxlen) < minlen
+    common = (arr == arr[0:1]).all(axis=0) & inrange
+    lcp = minlen if common.all() else int(np.argmin(common))
+    ridx = off[1:, None] - 1 - np.arange(maxlen)[None, :]
+    rev = flat[np.clip(ridx, 0, len(flat) - 1)]
+    commons = (rev == rev[0:1]).all(axis=0) & inrange
+    lcs = minlen if commons.all() else int(np.argmin(commons))
+    lcs = min(lcs, minlen - lcp)
+    mid_lens = lens - lcp - lcs
+    midmax = max(8, -(-int(mid_lens.max()) // 8) * 8)
+    if 64 + midmax + 1 >= _WIRE_LADDER_B:
+        return None  # not enough shared structure to beat R||S||k
+    return {"arr": arr, "lens": lens, "lcp": lcp, "lcs": lcs, "midmax": midmax,
+            "mid_lens": mid_lens}
 
 
 def batch_verifier(device="cuda") -> Ed25519BatchVerifier:

@@ -40,7 +40,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-LIBRARIES = ("field_kernels", "curve_kernels", "msm_kernels")
+LIBRARIES = ("field_kernels", "curve_kernels", "msm_kernels", "sha512_kernels")
 
 # The RLC layout's regions (ops/msm.py K_BUCKETS, N_REGIONS), which
 # csrc/msm_kernels.cu has as constants.
@@ -49,7 +49,8 @@ N_REGIONS = 39
 
 # One plain integer per kernel, incremented where the kernel is launched.
 launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0,
-            "accum_weight": 0, "region_sum": 0, "window_combine": 0}
+            "accum_weight": 0, "region_sum": 0, "window_combine": 0, "sha512_blocks": 0,
+            "reduce512": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -66,6 +67,10 @@ _SIGNATURES = {
         "accum_weight_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P],
         "region_sum_launch": [_P, _P, _I64, _P],
         "window_combine_launch": [_P, _P, _I64, _P],
+    },
+    "sha512_kernels": {
+        "sha512_blocks_launch": [_P, _P, _P, _I64, _P],
+        "reduce512_launch": [_P, _P, _I64, _P],
     },
 }
 
@@ -177,15 +182,21 @@ def _fn(lib: str, name: str):
     return getattr(build()[lib], name)
 
 
-def _check(t: torch.Tensor, shape: tuple, what: str) -> None:
+def _check(t: torch.Tensor, shape: tuple, what: str, dtype=torch.int32) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{what}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {str(dtype).removeprefix('torch.')}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def _check_rows16(t: torch.Tensor, what: str) -> None:
+    """Rows read as 16-byte loads need a 16-byte aligned start."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: expected a 16-byte aligned tensor")
 
 
 def _launch(f, kernel: str, device, batch: int, *ptrs) -> None:
@@ -312,4 +323,35 @@ def window_combine(sums: torch.Tensor) -> torch.Tensor:
     f = _fn("msm_kernels", "window_combine_launch")
     out = torch.empty((4, NLIMBS, 1), dtype=torch.int32, device=sums.device)
     _launch(f, "window_combine", sums.device, N_REGIONS, sums.data_ptr(), out.data_ptr())
+    return out
+
+
+def sha512_blocks(words: torch.Tensor, two_blocks: torch.Tensor) -> torch.Tensor:
+    """SHA-512 of each lane's pre-padded blocks: words (B, 64) int32, the
+    big-endian 32-bit words' bit patterns, 16-byte aligned; two_blocks (B,)
+    bool. Returns (B, 64) uint8, each lane's digest in hashlib's byte
+    order (byte i weighs 256^i in k); a lane whose flag is false takes the
+    state after block 1."""
+    batch = words.shape[0]
+    _check(words, (batch, 64), "sha512_blocks words")
+    _check(two_blocks, (batch,), "sha512_blocks two_blocks", torch.bool)
+    _check_rows16(words, "sha512_blocks words")
+    if two_blocks.device != words.device:
+        raise ValueError("sha512_blocks: operands on different devices")
+    f = _fn("sha512_kernels", "sha512_blocks_launch")
+    out = torch.empty((batch, 64), dtype=torch.uint8, device=words.device)
+    _launch(f, "sha512_blocks", words.device, batch,
+            words.data_ptr(), two_blocks.data_ptr(), out.data_ptr())
+    return out
+
+
+def reduce512(digest: torch.Tensor) -> torch.Tensor:
+    """(B, 64) uint8 little-endian 512-bit values, 16-byte aligned ->
+    (22, B) int32 canonical 12-bit limbs of the value mod L."""
+    batch = digest.shape[0]
+    _check(digest, (batch, 64), "reduce512 digest", torch.uint8)
+    _check_rows16(digest, "reduce512 digest")
+    f = _fn("sha512_kernels", "reduce512_launch")
+    out = torch.empty((NLIMBS, batch), dtype=torch.int32, device=digest.device)
+    _launch(f, "reduce512", digest.device, batch, digest.data_ptr(), out.data_ptr())
     return out

@@ -1,8 +1,12 @@
 """Batched scalar handling mod L (the ed25519 group order) on device.
 
-Twin of the part of `cometbft_tpu/ops/scalar.py` that the prehashed
-verify path needs, on the same 12-bit limbs:
+Twin of `cometbft_tpu/ops/scalar.py`, on the same 12-bit limbs:
 
+- `reduce512`: SHA-512 digests (512-bit little-endian) -> canonical
+  scalars < L. On a CUDA tensor one `reduce512` kernel launch
+  (`csrc/sha512_kernels.cu`); on a CPU tensor `reduce512_plain`, the
+  reference's Barrett reduction (HAC Alg 14.42) in base-2^12 limbs. The
+  output is canonical, so the two agree bit for bit.
 - `recode_signed`: scalar -> 64 signed radix-16 digits in [-8, 7] for the
   windowed ladder, via the add-0x888...8 trick (adding 8 to every nibble
   with full carry propagation turns unsigned nibbles into signed digits).
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from . import field as F
+from . import kernels as K
 
 BITS = F.BITS
 MASK = F.MASK
@@ -26,10 +31,15 @@ L_INT = 2**252 + 27742317777372353535851937790883648493
 HALF_INT = int("8" * 64, 16)  # 0x888...8: adds 8 to each of 64 nibbles
 
 _K = 22  # L occupies 22 base-2^12 limbs (bit 252 lives in limb 21)
+_MU_INT = (1 << (BITS * 2 * _K)) // L_INT  # floor(b^44 / L), 23 limbs
 
 
 def _to_limbs(x: int, n: int) -> np.ndarray:
     return np.array([(x >> (BITS * i)) & MASK for i in range(n)], np.int32)
+
+
+L_LIMBS = _to_limbs(L_INT, _K)[:, None]  # (22, 1), host copy
+_MU_LIMBS = _to_limbs(_MU_INT, 23)[:, None]  # (23, 1), host copy
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +81,47 @@ def _sub_borrow(a, b):
         out.append(t & MASK)
         c = (t >> BITS) & 1  # arithmetic shift of negative -> -1; mask to 1
     return torch.cat(out), c
+
+
+def _conv(a, b):
+    """Plain (no modular fold) limb convolution: (n, B) x (m, B or 1) ->
+    (n + m - 1, B), one shifted row of products per limb of a."""
+    n, m = a.shape[0], b.shape[0]
+    t = torch.zeros((n + m - 1, a.shape[1]), dtype=torch.int32, device=a.device)
+    for i in range(n):
+        t[i : i + m] += a[i][None, :] * b
+    return t
+
+
+def reduce512_plain(digest_bytes):
+    """Plain PyTorch version of the `reduce512` kernel: (B, 64) uint8
+    little-endian 512-bit values -> (22, B) int32 canonical limbs < L, by
+    the reference's Barrett reduction in 12-bit limbs."""
+    x = bytes_to_limbs(digest_bytes, 43)  # already canonical
+    dev = x.device
+    q1 = x[_K - 1 :]  # floor(x / b^21): 22 limbs
+    q2 = _conv(q1, _limbs_const(_MU_INT, 23, dev))
+    # q1*mu < b^45: one extra row absorbs the convolution's carries
+    q2 = torch.cat([q2, torch.zeros_like(q2[:1])])
+    q2, _ = _canon(q2)
+    q3 = q2[_K + 1 :]  # floor(q2 / b^23)
+    r2, _ = _canon(_conv(q3, _limbs_const(L_INT, _K, dev))[: _K + 1])
+    r, _ = _sub_borrow(x[: _K + 1], r2)  # r >= 0 mathematically; borrow ignored
+    lpad = torch.cat([_limbs_const(L_INT, _K, dev), torch.zeros((1, 1), dtype=torch.int32,
+                                                                device=dev)]).expand_as(r)
+    for _ in range(2):  # Barrett leaves r < 3L
+        d, borrow = _sub_borrow(r, lpad)
+        r = torch.where(borrow == 0, d, r)
+    return r[:_K]
+
+
+def reduce512(digest_bytes):
+    """(B, 64) uint8 little-endian 512-bit values -> (22, B) int32
+    canonical limbs < L: one kernel launch on a CUDA tensor,
+    `reduce512_plain` on a CPU tensor."""
+    if F.on_gpu(digest_bytes):
+        return K.reduce512(digest_bytes.contiguous())
+    return reduce512_plain(digest_bytes)
 
 
 def lt_l(s_bytes):

@@ -203,7 +203,8 @@ def pin_model(monkeypatch, link_mbps, rlc_us, ladder_us=1.6, n=10_000, b=10_240,
         "ladder_us": float(ladder_us), "ladder_s": n * ladder_dev_us * 1e-6,
         "ladder_issue_s": issue_s, "rlc_us": float(rlc_us), "rlc_s": n * rlc_dev_us * 1e-6,
         "rlc_issue_s": issue_s, "rlc_wire_b": rlc_wire_b * b, "rlc_threads": 1,
-        "rlc_native": True}})
+        "rlc_native": True, "delta_us": float("inf"), "delta_s": float("inf"),
+        "delta_issue_s": issue_s, "delta_wire_b": 0}})
 
 
 @pytest.mark.parametrize("link_mbps, rlc_us, rlc_wins, binding", [
@@ -244,24 +245,29 @@ def test_rlc_never_beats_the_ladder_on_the_cpu(monkeypatch):
 def test_terms_are_calibrated_at_the_bucket(monkeypatch):
     """The host terms are the verifier's own packs of a bucket-wide
     throwaway batch, timed here; the device halves (a card's CUDA events)
-    are stubbed. Once per bucket and device."""
+    are stubbed: the ladder's, the delta route's and the RLC route's. Once
+    per bucket and device."""
     monkeypatch.setattr(E, "_TERMS", {})
     timed = []
     monkeypatch.setattr(E, "_timed_launch", lambda fn, dev: timed.append(dev) or (0.001, 0.002))
     metrics.reset_bundles()
     cpu = torch.device("cpu")
     terms = E._terms(64, cpu)
-    assert timed == [cpu, cpu]
+    assert timed == [cpu, cpu, cpu]
     assert 0 < terms["ladder_us"] < 1e4 and 0 < terms["rlc_us"] < 1e5
-    assert terms["ladder_issue_s"] == terms["rlc_issue_s"] == 0.001
-    assert terms["ladder_s"] == terms["rlc_s"] == 0.002
+    assert 0 < terms["delta_us"] < 1e4
+    assert terms["ladder_issue_s"] == terms["rlc_issue_s"] == terms["delta_issue_s"] == 0.001
+    assert terms["ladder_s"] == terms["rlc_s"] == terms["delta_s"] == 0.002
+    # the delta buffer: (64, 64 + 8 + 1) rows and the 360-byte meta, 16-byte aligned
+    assert terms["delta_wire_b"] == 64 * 73 + 368
     bv = port_verifier(signed(64))
     assert terms["rlc_wire_b"] == bv._pack_rlc()[0].numel()  # the packed buffer's bytes
     assert terms["rlc_native"] == native.rlc_available()
     assert terms["rlc_threads"] == native.rlc_packer_threads()
-    assert E._terms(64, cpu) is terms and len(timed) == 2
+    assert E._terms(64, cpu) is terms and len(timed) == 3
     gauge = metrics.crypto_metrics().calibration_us_per_sig.values()
-    assert gauge == {("ladder_us",): terms["ladder_us"], ("rlc_us",): terms["rlc_us"]}
+    assert gauge == {("ladder_us",): terms["ladder_us"], ("rlc_us",): terms["rlc_us"],
+                     ("delta_us",): terms["delta_us"]}
     metrics.reset_bundles()
 
 

@@ -20,6 +20,8 @@ torch = pytest.importorskip("torch")
 from cometbft_tpu_torch.ops import field as F  # noqa: E402
 from cometbft_tpu_torch.ops import kernels as K  # noqa: E402
 from cometbft_tpu_torch.ops import msm as M  # noqa: E402
+from cometbft_tpu_torch.ops import scalar as SC  # noqa: E402
+from cometbft_tpu_torch.ops import sha512 as H  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -37,7 +39,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu"))
         missing = set(["cometbft_tpu_torch.crypto.native", "cometbft_tpu_torch.utils.trace",
-                       "cometbft_tpu_torch.utils.metrics"]) - set(names)
+                       "cometbft_tpu_torch.utils.metrics", "cometbft_tpu_torch.ops.sha512",
+                       "cometbft_tpu_torch.graft_entry"]) - set(names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 12 else 0)
     """)
@@ -47,15 +50,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def fake_cuda_tensor(shape):
-    """Stands in for a CUDA int32 tensor on a host whose torch has no CUDA:
-    it passes the wrappers' device, dtype, shape and layout checks."""
+def fake_cuda_tensor(shape, dtype=torch.int32):
+    """Stands in for a CUDA tensor (int32 unless told) on a host whose
+    torch has no CUDA: it passes the wrappers' device, dtype, shape and
+    layout checks."""
     t = types.SimpleNamespace(
-        device=torch.device("cuda"), dtype=torch.int32, shape=torch.Size(shape),
+        device=torch.device("cuda"), dtype=dtype, shape=torch.Size(shape),
         is_contiguous=lambda: True, data_ptr=lambda: 0,
     )
     t.contiguous = lambda: t
-    t.to = lambda *args, **kwargs: t
+    t.to = lambda *args, **kwargs: (
+        fake_cuda_tensor(shape, kwargs["dtype"]) if "dtype" in kwargs else t)
     t.reshape = lambda *new_shape: fake_cuda_tensor((t.shape.numel(),))  # reshape(-1) only
     return t
 
@@ -118,6 +123,17 @@ def test_cuda_requests_without_a_library_raise(no_nvcc):
         K.window_combine(sums)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         M.window_combine(sums)
+    words = fake_cuda_tensor((8, 64))
+    two = fake_cuda_tensor((8,), torch.bool)
+    digest = fake_cuda_tensor((8, 64), torch.uint8)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.sha512_blocks(words, two)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        H.sha512_digest(words, two)  # the dispatching wrapper: no plain fallback either
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.reduce512(digest)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        SC.reduce512(digest)
     assert K.launches == before
 
 
@@ -136,6 +152,10 @@ def test_launchers_refuse_cpu_tensors():
         K.region_sum(torch.zeros((4, F.NLIMBS, 2 * M.K_BUCKETS), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.window_combine(torch.zeros((4, F.NLIMBS, M.N_REGIONS), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.sha512_blocks(torch.zeros((4, 64), dtype=torch.int32), torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.reduce512(torch.zeros((4, 64), dtype=torch.uint8))
 
 
 def test_launchers_check_dtype_and_shape():
@@ -162,6 +182,20 @@ def test_launchers_check_dtype_and_shape():
         K.region_sum(fake_cuda_tensor((3, F.NLIMBS, M.K_BUCKETS)))
     with pytest.raises(ValueError, match="shape"):
         K.window_combine(fake_cuda_tensor((4, F.NLIMBS, M.N_REGIONS - 1)))
+    words, two = fake_cuda_tensor((8, 64)), fake_cuda_tensor((8,), torch.bool)
+    with pytest.raises(ValueError, match="expected bool"):
+        K.sha512_blocks(words, fake_cuda_tensor((8,)))
+    with pytest.raises(ValueError, match="shape"):
+        K.sha512_blocks(fake_cuda_tensor((8, 63)), two)
+    with pytest.raises(ValueError, match="shape"):
+        K.sha512_blocks(words, fake_cuda_tensor((7,), torch.bool))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.sha512_blocks(types.SimpleNamespace(**{**vars(words), "data_ptr": lambda: 4}), two)
+    with pytest.raises(ValueError, match="expected uint8"):
+        K.reduce512(fake_cuda_tensor((8, 64)))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.reduce512(types.SimpleNamespace(**{**vars(fake_cuda_tensor((8, 64), torch.uint8)),
+                                             "data_ptr": lambda: 8}))
 
 
 def test_build_dir_is_keyed_by_the_sources():
@@ -170,5 +204,5 @@ def test_build_dir_is_keyed_by_the_sources():
     assert K.build_dir() == d
     assert {p.name for p in K._sources()} >= {
         "field25519.cuh", "edwards25519.cuh", "field_kernels.cu", "curve_kernels.cu",
-        "msm_kernels.cu"}
+        "msm_kernels.cu", "sha512_kernels.cu"}
 

@@ -306,3 +306,86 @@ def test_verifier_on_the_card(dev):
     assert not ok and [i for i, b in enumerate(bits) if not b] == [7]
     assert generate_signed_batch(8, seed=3, device="cpu") == generate_signed_batch(
         8, seed=3, device=dev)
+
+
+def sha_inputs(rng, n):
+    """n padded R||A||M rows of 64 to 239 bytes (the block edges first) and
+    their flags, as the device-SHA route packs them (int32 bit patterns)."""
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    lens = ([0, 47, 48, 175] + rng.integers(0, 176, n).tolist())[:n]
+    msgs = [rng.bytes(64 + ln) for ln in lens]
+    words, two = H.pad_messages(msgs)
+    return msgs, torch.from_numpy(words.view(np.int32)), torch.from_numpy(two)
+
+
+def test_sha512_blocks_matches_plain_and_hashlib(dev):
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    msgs, words, two = sha_inputs(np.random.default_rng(12), 4096)
+    before = K.launches["sha512_blocks"]
+    got = H.sha512_digest(words.to(dev), two.to(dev))
+    assert K.launches["sha512_blocks"] == before + 1
+    assert torch.equal(got.cpu(), H.sha512_digest_plain(words, two))
+    assert [bytes(r) for r in got[:64].cpu().numpy()] == [
+        __import__("hashlib").sha512(m).digest() for m in msgs[:64]]
+
+
+def reduce_inputs(rng, n):
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    L, top = SC.L_INT, (1 << 512) - 1
+    vals = [0, L - 1, L, 2 * L, top, 3 * L - 1, top // L * L - 1]
+    vals = (vals + [int.from_bytes(rng.bytes(64), "little") for _ in range(n)])[:n]
+    return vals, torch.from_numpy(np.stack(
+        [np.frombuffer(v.to_bytes(64, "little"), np.uint8) for v in vals]))
+
+
+def test_reduce512_matches_plain_and_ints(dev):
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    vals, digest = reduce_inputs(np.random.default_rng(13), 4096)
+    before = K.launches["reduce512"]
+    got = SC.reduce512(digest.to(dev)).cpu()
+    assert K.launches["reduce512"] == before + 1
+    assert torch.equal(got, SC.reduce512_plain(digest))
+    assert [sum(int(x) << (12 * i) for i, x in enumerate(got[:, j])) for j in range(64)] == [
+        v % SC.L_INT for v in vals[:64]]
+
+
+@pytest.mark.parametrize("n", [1, 3, 70, 1027])
+def test_sha512_blocks_ragged_batches(dev, n):
+    _, words, two = sha_inputs(np.random.default_rng(14), 1027)
+    full = K.sha512_blocks(words.to(dev), two.to(dev))
+    part = K.sha512_blocks(words[:n].to(dev), two[:n].to(dev))
+    assert torch.equal(part, full[:n])
+
+
+@pytest.mark.parametrize("n", [1, 3, 70, 1027])
+def test_reduce512_ragged_batches(dev, n):
+    _, digest = reduce_inputs(np.random.default_rng(15), 1027)
+    full = K.reduce512(digest.to(dev))
+    assert torch.equal(K.reduce512(digest[:n].to(dev)), full[:, :n])
+
+
+def test_device_sha_and_delta_routes_on_the_card(dev, monkeypatch):
+    """300 vote-shaped signatures with a bad lane through each route: the
+    exact bitmap, and each route's kernels launched once a submit."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
+
+    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b, device: False)
+    monkeypatch.setattr(E, "_delta_beats_prehashed", lambda n, b, device: True)
+    items = generate_signed_batch(300, seed=6, msg_len=100, vote_shaped=True, device=dev)
+    for path, kw in (("device_sha", {"device_sha": True}), ("delta", {})):
+        bv = E.Ed25519BatchVerifier(device=dev, **kw)
+        for i, (pub, msg, sig) in enumerate(items):
+            bv.add(E.Ed25519PubKey(pub), msg, bytes([sig[0] ^ (i == 17)]) + sig[1:])
+        before = dict(K.launches)
+        pending = bv.submit()
+        torch.cuda.synchronize()
+        ran = {k: K.launches[k] - before[k] for k in K.launches}
+        assert pending._path == path
+        assert ran["sha512_blocks"] == ran["reduce512"] == ran["ladder_sub_mul8"] == 1, ran
+        ok, bits = pending.result()
+        assert not ok and [i for i, b in enumerate(bits) if not b] == [17]

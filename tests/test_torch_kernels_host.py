@@ -1,7 +1,8 @@
 """The CUDA kernels' code, compiled for the host and run on the CPU.
 
 This machine has no nvcc and no card, so `csrc/curve_kernels.cu`,
-`csrc/field_kernels.cu` and `csrc/msm_kernels.cu` are compiled here with
+`csrc/field_kernels.cu`, `csrc/msm_kernels.cu` and `csrc/sha512_kernels.cu`
+are compiled here with
 g++ against a small header that stands in for the CUDA features they use:
 each CUDA thread of a block is a user-space context (`ucontext`),
 `__syncthreads` a hand-over to the next one round-robin, `__shfl_sync` an
@@ -10,12 +11,15 @@ array per block. That runs the four-threads-per-lane ladder (its
 shuffles, layouts, table columns and signed-digit handling), `decompress`,
 the field products, the RLC route's `accum_weight` (four threads a lane),
 the RLC tail's `region_sum` (one block per region, partial sums in shared
-memory) and `window_combine` (one lane on four threads) on small inputs,
-which must agree with the plain PyTorch versions after `freeze`. Partial
+memory) and `window_combine` (one lane on four threads), and the
+device-SHA routes' `sha512_blocks` and `reduce512` (one lane a thread) on
+small inputs, which must agree with the plain PyTorch versions (after
+`freeze` for field elements; digests and scalars bit for bit). Partial
 thread groups and partial blocks are in every ladder and `accum_weight`
 case. Skips without g++.
 """
 
+import hashlib
 import shutil
 import subprocess
 
@@ -48,6 +52,7 @@ SHIM = r"""
 #define __restrict__
 #define __launch_bounds__(...)
 struct int2 { int x, y; };
+struct uint4 { unsigned x, y, z, w; };
 template <typename T> inline T __ldg(const T* p) { return *p; }
 // The threads of a block are user-space contexts run round-robin: each
 // runs until it reaches a barrier, then hands over to the next live one,
@@ -200,6 +205,29 @@ int main(int argc, char** argv) {
                [&] { window_combine_kernel(sums.data(), out.data(), regions); });
   }
   wr(d + "/out", out);
+  return 0;
+}
+""",
+    "sha512_kernels": r"""
+int main(int argc, char** argv) {
+  const std::string kind = argv[1], d = argv[3];
+  const long B = atol(argv[2]);
+  if (kind == "sha512") {  // words (B, 64), two (B,) as int32 0/1 -> digest (B, 64) bytes
+    auto words = rd(d + "/words", 64 * B), two32 = rd(d + "/two", B);
+    std::vector<uint8_t> two(two32.begin(), two32.end());
+    std::vector<int32_t> out(16 * B, -1);
+    emu_launch((B + SHA_THREADS - 1) / SHA_THREADS, SHA_THREADS, 0, [&] {
+      sha512_blocks_kernel((const uint32_t*)words.data(), two.data(), (uint64_t*)out.data(), B);
+    });
+    wr(d + "/out", out);
+  } else {  // digest (B, 64) bytes -> (22, B) limbs
+    auto digest = rd(d + "/digest", 16 * B);
+    std::vector<int32_t> out(22 * B, -1);
+    emu_launch((B + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, [&] {
+      reduce512_kernel((const uint8_t*)digest.data(), out.data(), B);
+    });
+    wr(d + "/out", out);
+  }
   return 0;
 }
 """,
@@ -399,3 +427,45 @@ def test_accum_weight_matches_plain(host_build, tmp_path, lanes, rounds):
                                        torch.from_numpy(neg != 0), torch.from_numpy(weights))
     assert all(frozen_equal(g, w) for g, w in zip(out, want))
     assert torch.equal(out, torch.stack([F.freeze(g) for g in out]))
+
+
+@pytest.mark.parametrize("n", [1, 37])
+def test_sha512_blocks_matches_plain(host_build, tmp_path, n):
+    """Messages of 0 to 175 bytes (the lengths at the block edge among
+    them) behind 64-byte R||A heads, one- and two-block lanes, and in the
+    last lanes a one-block flag over a second block of junk; 37 lanes end
+    in a partial block."""
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    rng = np.random.default_rng(60 + n)
+    lens = [0, 111 - 64, 112 - 64, 175] + rng.integers(0, 176, n).tolist()
+    msgs = [rng.bytes(64 + ln) for ln in lens[:n]]
+    words, two = H.pad_messages(msgs)
+    if n > 4:
+        words[-1, 32:] = rng.integers(0, 2**32, 32, dtype=np.uint32)
+        two[-1] = False
+    out = run(host_build["sha512_kernels"], "sha512", n,
+              {"words": words.view(np.int32), "two": two.astype(np.int32)},
+              [("out", (n, 16))], tmp_path)[0]
+    digest = torch.from_numpy(out.numpy().view(np.uint8).reshape(n, 64))
+    want = H.sha512_digest_plain(torch.from_numpy(words.view(np.int32)), torch.from_numpy(two))
+    assert torch.equal(digest, want)
+    assert bytes(digest[0].numpy()) == hashlib.sha512(msgs[0]).digest()
+
+
+@pytest.mark.parametrize("n", [1, 70])
+def test_reduce512_matches_plain(host_build, tmp_path, n):
+    """0, L - 1, L, 2L, 2^512 - 1, values just under multiples of L, and
+    random 512-bit values; 70 lanes end in a partial block."""
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    rng = np.random.default_rng(80 + n)
+    L, top = SC.L_INT, (1 << 512) - 1
+    vals = [top, 0, L - 1, L, 2 * L, 3 * L - 1, top // L * L - 1, (2**259 + 3) * L - 1]
+    vals = (vals + [int.from_bytes(rng.bytes(64), "little") for _ in range(n)])[:n]
+    digest = np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8) for v in vals])
+    out = run(host_build["sha512_kernels"], "reduce512", n, {"digest": digest.view(np.int32)},
+              [("out", (22, n))], tmp_path)[0]
+    assert torch.equal(out, SC.reduce512_plain(torch.from_numpy(digest)))
+    assert [sum(int(x) << (12 * i) for i, x in enumerate(out[:, j])) for j in range(n)] == [
+        v % L for v in vals]

@@ -1,7 +1,7 @@
 """What the CUDA sources of `cometbft_tpu_torch` promise that the CPU can
 check without a compiler: the curve constants written out in the kernels'
-radix 2^25.5, and the C launch signatures that `ops/kernels.py` binds with
-ctypes.
+radix 2^25.5, the SHA-512 and Barrett constants of `sha512_kernels.cu`,
+and the C launch signatures that `ops/kernels.py` binds with ctypes.
 """
 
 import re
@@ -75,7 +75,8 @@ def test_msm_kernel_constants_match_the_layout():
     body = re.search(r"__constant__ int REGION_DBL\[N_REGIONS\] = \{([^}]*)\}", src).group(1)
     assert tuple(int(x) for x in body.split(",")) == M.REGION_DBL
     assert set(K.launches) == {"fe_mul", "fe_sq", "decompress", "ladder_sub_mul8",
-                               "accum_weight", "region_sum", "window_combine"}
+                               "accum_weight", "region_sum", "window_combine",
+                               "sha512_blocks", "reduce512"}
 
 
 def constant(src: str, name: str) -> int:
@@ -120,11 +121,19 @@ def test_launch_shapes_match_the_sources():
     smoke = (ROOT / "chip_smoke.py").read_text()
     check = int(re.search(r"^LADDER_CHECK_LANES = ([\d_]+)", smoke, re.M).group(1))
     assert re.search(r"^RAGGED_LANES = \(1, 3, 70, LADDER_CHECK_LANES\)", smoke, re.M)
+    # sha512_blocks and reduce512: one lane a thread
+    sha = (CSRC / "sha512_kernels.cu").read_text()
+    sha_threads, reduce_threads = constant(sha, "SHA_THREADS"), constant(sha, "REDUCE_THREADS")
+    assert (sha_threads, reduce_threads) == (32, 64)
+    assert "__launch_bounds__(SHA_THREADS)" in sha and "__launch_bounds__(REDUCE_THREADS)" in sha
+    assert "<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0," in sha
+    assert "<<<blocks_for(batch, REDUCE_THREADS), REDUCE_THREADS, 0," in sha
     card = (ROOT / "tests" / "test_torch_kernels.py").read_text()
-    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 3
+    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 5
     for n in (3, 70, check):
         assert n % (ladder // lane_threads) and n % decompress, n
         assert n % (accum // lane_threads), n
+        assert n % sha_threads and n % reduce_threads, n
 
 
 def test_ladder_shared_memory_needs_no_opt_in():
@@ -169,3 +178,25 @@ def test_ptxas_usage_reads_registers_and_spills():
     assert K.ptxas_usage(log, "accum_weight_kernel") == {"spill_bytes": 0, "registers": 92}
     assert K.ptxas_usage(log, "region_sum_kernel") == {"spill_bytes": 12, "registers": 255}
     assert K.ptxas_usage(log, "window_combine_kernel") == {}
+
+
+def constant_array(src: str, name: str) -> list[int]:
+    body = re.search(rf"__constant__ uint(?:32|64)_t {name}\[\d+\] = \{{([^}}]*)\}}", src).group(1)
+    return [int(x.strip().rstrip("ul"), 16) for x in body.split(",") if x.strip()]
+
+
+def test_sha512_kernel_constants_match_the_derived_ones():
+    """K512 and IV512 of sha512_kernels.cu are the constants the plain
+    version derives from exact integer roots; L_W and MU_W are L and
+    floor(2^512 / L) in 32-bit words."""
+    from cometbft_tpu_torch.ops import scalar as SC
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    src = (CSRC / "sha512_kernels.cu").read_text()
+    assert constant_array(src, "K512") == H.K64
+    assert constant_array(src, "IV512") == H.IV64
+    words = lambda x, n: [(x >> (32 * i)) & 0xFFFFFFFF for i in range(n)]  # noqa: E731
+    assert constant_array(src, "L_W") == words(SC.L_INT, 8)
+    mu = (1 << 512) // SC.L_INT
+    assert mu < 1 << 288 and constant_array(src, "MU_W") == words(mu, 9)
+    assert constant(src, "NLIMBS12") == 22

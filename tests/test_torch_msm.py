@@ -324,7 +324,7 @@ def test_packed_buffer_carries_the_layout(batch):
     bv = verifier(batch["items"])
     buf, fields, s_pad = bv._pack_rlc(batch["z16"])
     assert buf.dtype == torch.uint8 and buf.dim() == 1 and s_pad == batch["s_pad"]
-    t = E.unpack_rlc(buf, fields)
+    t = E.unpack_fields(buf, fields)
     prep = batch["prep"]
     for k in ("stream", "stream_neg", "counts", "weights", "c_digits"):
         np.testing.assert_array_equal(t[k].numpy().astype(prep[k].dtype), prep[k], err_msg=k)
