@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`cometbft_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent-sha PATH]
 
 Phases, each of which raises on failure (so the script exits non-zero
 and never prints its last line):
@@ -36,7 +36,15 @@ and never prints its last line):
    under multiples of L in the first lanes: exact against the plain
    versions, the digests against `hashlib.sha512` and k against
    `int.from_bytes(digest, "little") % L` on every lane, launches of 1, 3,
-   70 and 1,027 lanes equal to the full launch's;
+   70 and 1,027 lanes equal to the full launch's; then `sha512_reduce`
+   (the hash and the reduction in one launch, the routes' challenge) on
+   the same 10,240 padded lanes: exact against its plain version and equal
+   to `int.from_bytes(hashlib.sha512(m).digest(), "little") % L` on every
+   lane, ragged launches of 1, 3, 70 and 1,027 lanes equal to the full
+   launch's. With `--parent-sha PATH` (an earlier commit's
+   `csrc/sha512_kernels.cu`, e.g. from `git show`), that file is built
+   too, its `sha512_blocks` and `reduce512` must give the same outputs,
+   and each is timed (events and alone) beside this checkout's kernels;
 4. the main path, four routes, each with every launch count set to 0
    just before it and read right after; a kernel of the route that was
    never launched is an error:
@@ -63,11 +71,12 @@ and never prints its last line):
      RLC seam pinned False): the same 16 commits, cold and warm, the
      bad-lane commit, and the bad-lane commit with two lanes whose
      R||A||M exceeds two SHA-512 blocks (a valid and a broken one), which
-     go out dead and come back verified on the host; `sha512_blocks`,
-     `reduce512`, `decompress` and `ladder_sub_mul8` once or more a commit;
+     go out dead and come back verified on the host; `sha512_reduce`
+     exactly once a commit, `sha512_blocks` and `reduce512` never, and
+     `decompress` and `ladder_sub_mul8` once or more a commit;
    - the structured-wire (delta) route, pinned through its seam
      (`crypto.ed25519._delta_beats_prehashed` True): the same 16 commits
-     and the bad-lane commit; the same four kernels.
+     and the bad-lane commit; the same kernels, the same counts.
    The ladder and RLC legs pin the delta seam False. Every commit of the
    phase has more than NATIVE_MAX signatures, so none takes the native
    route. A stage split of one warm commit of each route (host pack,
@@ -92,7 +101,8 @@ and never prints its last line):
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
-   lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane);
+   lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
+   `sha512_reduce`: both, at the same rate);
 7. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
@@ -167,9 +177,14 @@ SOURCES = {
                       "cometbft_tpu/ops/sha512.py:131 (plain XLA)"),
     "reduce512": ("cometbft_tpu_torch/csrc/sha512_kernels.cu",
                   "cometbft_tpu/ops/scalar.py:131 (plain XLA)"),
+    "sha512_reduce": ("cometbft_tpu_torch/csrc/sha512_kernels.cu",
+                      "cometbft_tpu/ops/sha512.py:131 and cometbft_tpu/ops/scalar.py:131 "
+                      "(plain XLA), fused"),
 }
-# the kernels the device-SHA and delta routes launch
-SHA_KERNELS = ("sha512_blocks", "reduce512", "decompress", "ladder_sub_mul8")
+# the kernels the device-SHA and delta routes launch, and the standalone
+# challenge kernels they must not launch
+SHA_KERNELS = ("sha512_reduce", "decompress", "ladder_sub_mul8")
+SHA_STANDALONE = ("sha512_blocks", "reduce512")
 # Dependent field-product stages of the one-lane chains: a region's tree is
 # 9 additions of 3 products in a row (a, b, then c = (T1 2d) T2, then the
 # four outputs); with four threads a lane, a doubling and an addition are
@@ -366,12 +381,14 @@ def submit_through_rlc(cols, device, on_decline, tries: int = 5):
     raise AssertionError(f"the RLC layout declined the commit {tries} times in a row")
 
 
-def sha_phase(dev, seed, items, record, kern, mul_rate, int_rate) -> None:
+def sha_phase(dev, seed, items, record, kern, mul_rate, int_rate, parent_sha=None) -> None:
     """Phase 3's device-SHA kernels at B = 10,240: `sha512_blocks` on the
     padded R||A||M of the commit's lanes and 240 edge lanes, `reduce512` on
-    those digests with edge values in the first lanes; each exact against
-    its plain version, the digests against hashlib and k against Python
-    integers on every lane, ragged launches equal to the full launch's."""
+    those digests with edge values in the first lanes, `sha512_reduce` on
+    the padded lanes; each exact against its plain version, the digests
+    against hashlib and k against Python integers on every lane, ragged
+    launches equal to the full launch's. `parent_sha`: an earlier
+    `sha512_kernels.cu`, built and timed beside these (`parent_kernels`)."""
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
     from cometbft_tpu_torch.ops import kernels as K
     from cometbft_tpu_torch.ops import scalar as SC
@@ -439,6 +456,84 @@ def sha_phase(dev, seed, items, record, kern, mul_rate, int_rate) -> None:
     record("reduce512", mism, err, lambda: K.reduce512(red_in), lambda: SC.reduce512_plain(red_in),
            100, B, (64 + 88) * B, ops_s=REDUCE_WIDE_MULS * B / mul_rate)
     kern["reduce512"]["wide_muls_per_lane"] = REDUCE_WIDE_MULS
+
+    # the fused challenge: k = SHA-512(R||A||M) mod L in one launch
+    red_out = k
+    k = K.sha512_reduce(words, two)
+    want = SC.sha512_reduce_plain(words, two)
+    mism = int((k != want).any(dim=0).sum())
+    err = int((k - want).abs().max())
+    k_host = k.cpu().numpy().astype(object)
+    got = (k_host * np.array([1 << (12 * j) for j in range(22)], dtype=object)[:, None]).sum(0)
+    wrong = [i for i, m in enumerate(pre)
+             if got[i] != int.from_bytes(hashlib.sha512(m).digest(), "little") % L]
+    if wrong:
+        raise AssertionError(f"sha512_reduce: {len(wrong)} lanes differ from hashlib's digest "
+                             f"mod L, lanes {wrong[:10]}")
+    for n in RAGGED_LANES:
+        if not torch.equal(K.sha512_reduce(words[:n].contiguous(), two[:n].contiguous()),
+                           k[:, :n]):
+            raise AssertionError(f"sha512_reduce: lanes differ between B={n} and B={B} launches")
+    log(f"sha512_reduce: the same {B} lanes, every k equal to int.from_bytes(hashlib.sha512(m)"
+        f".digest(), 'little') % L; ragged launches {RAGGED_LANES} equal to the B={B} launch")
+    record("sha512_reduce", mism, err, lambda: K.sha512_reduce(words, two),
+           lambda: SC.sha512_reduce_plain(words, two), 50, B, (256 + 1 + 88) * B,
+           ops_s=(blocks * SHA_INT_OPS_PER_BLOCK + B * REDUCE_WIDE_MULS) / int_rate)
+    kern["sha512_reduce"].update(blocks_hashed=blocks, int_ops_per_block=SHA_INT_OPS_PER_BLOCK,
+                                 wide_muls_per_lane=REDUCE_WIDE_MULS)
+    if parent_sha is not None:
+        parent_kernels(parent_sha, words, two, digest, red_in, red_out, kern)
+    else:
+        log("no --parent-sha: an earlier commit's challenge kernels not timed")
+
+
+def parent_kernels(path, words, two, digest, red_in, limbs, kern) -> None:
+    """Build `path` (an earlier `sha512_kernels.cu`, same launch signatures)
+    into build/, check its `sha512_blocks` and `reduce512` give this
+    checkout's outputs, and time each (events and alone) beside them:
+    kern[name]["parent"]."""
+    import ctypes
+
+    from cometbft_tpu_torch.ops import kernels as K
+
+    text = Path(path).read_bytes()
+    out_dir = K.BUILD_ROOT / "parent" / hashlib.sha256(text).hexdigest()[:16]
+    K.compile_sources({"sha512_parent": Path(path).resolve()}, out_dir)
+    lib = ctypes.CDLL(str(out_dir / "sha512_parent.so"))
+    log_text = (out_dir / "sha512_parent.ptxas.txt").read_text()
+    stream = torch.cuda.current_stream().cuda_stream
+    batch = words.shape[0]
+    for name, args, want in (("sha512_blocks", (words, two), digest),
+                             ("reduce512", (red_in,), limbs)):
+        f = getattr(lib, f"{name}_launch")
+        f.argtypes = K._SIGNATURES["sha512_kernels"][f"{name}_launch"]
+        f.restype = ctypes.c_int
+        out = torch.empty_like(want)
+
+        def go(f=f, args=args, out=out, name=name):
+            rc = f(*(a.data_ptr() for a in args), out.data_ptr(), batch, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent {name} launch failed: cudaError {rc}")
+
+        go()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"the parent's {name} disagrees with this checkout's")
+        reps = 50 if name == "sha512_blocks" else 100
+        kern[name]["parent"] = {"source": str(path), "ms": cuda_ms(go, reps),
+                                "device_only_ms": kernel_device_ms(go, name, reps),
+                                **K.ptxas_usage(log_text, f"{name}_kernel")}
+        log(f"parent {name} ({path}): kernel {kern[name]['parent']['ms']:.4f} ms (device alone "
+            f"{kern[name]['parent']['device_only_ms']:.4f} ms) against this checkout's "
+            f"{kern[name]['ms']:.4f} ({kern[name]['device_only_ms']:.4f}); same outputs")
+
+
+def check_challenge_launches(route: str, counts: dict, commits: int) -> None:
+    """The device-SHA and delta routes take each commit's challenge through
+    one `sha512_reduce` launch and never launch the standalone kernels."""
+    if counts["sha512_reduce"] != commits or any(counts[n] for n in SHA_STANDALONE):
+        raise AssertionError(f"{route}: {commits} commits, so {commits} sha512_reduce launches "
+                             f"and no {' or '.join(SHA_STANDALONE)}: {counts}")
 
 
 def ptxas_per_kernel(K, report: dict) -> dict:
@@ -685,6 +780,8 @@ def host_engine_phase(dev, card, seed, commit, bad_items, expect, pipeline_sigs_
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-sha", type=Path, default=None,
+                    help="an earlier commit's csrc/sha512_kernels.cu to time beside this one's")
     args = ap.parse_args(argv)
 
     # ---- phase 1: the card
@@ -966,7 +1063,7 @@ def main(argv=None) -> int:
         f"latency floor {floor_ms(combine_stages):.4f} ms ({combine_stages} stages)")
     del got, sums, msm, tail, tail_a4, tail_r4
     torch.cuda.synchronize()
-    sha_phase(dev, args.seed, items, record, kern, mul_rate, int_rate)
+    sha_phase(dev, args.seed, items, record, kern, mul_rate, int_rate, args.parent_sha)
     del items
     torch.cuda.synchronize()
 
@@ -1117,8 +1214,7 @@ def main(argv=None) -> int:
                             "commit with oversize lanes 5-6 (5 accepted, 6 rejected on the host)")
             submits += 1
         r_counts = read_counts(route, SHA_KERNELS)
-        if r_counts["sha512_blocks"] != submits or r_counts["reduce512"] != submits:
-            raise AssertionError(f"{route}: {submits} commits but launches {r_counts}")
+        check_challenge_launches(route, r_counts, submits)
         r_sigs = PIPELINE_DEPTH * COMMIT_SIGS / r_warm_s
         log(f"{route} pipeline: {PIPELINE_DEPTH} commits x {COMMIT_SIGS} sigs, all ok; cold "
             f"{r_cold_s:.3f} s, warm {r_warm_s:.3f} s (submits {r_warm_submit_s:.3f} s) -> "
@@ -1135,7 +1231,7 @@ def main(argv=None) -> int:
     for name in SOURCES:
         kern[name]["launches"] = sum(c[name] for c in by_route.values())
         kern[name]["launches_by_route"] = {r: c[name] for r, c in by_route.items()}
-    for name in ("sha512_blocks", "reduce512"):
+    for name in ("sha512_reduce", *SHA_STANDALONE):
         kern[name]["launches_per_commit"] = {r: sha_routes[r]["counts"][name]
                                              / sha_routes[r]["commits"] for r in sha_routes}
     # the ladder and delta routes decompress A once per set
@@ -1276,7 +1372,7 @@ def main(argv=None) -> int:
         if not bool(all_ok.item()):
             raise AssertionError(f"{route} stage-split commit did not verify")
         st["d2h_ms"] = (time.perf_counter() - t0) * 1e3
-        st["kernels_ms"] = (kern["sha512_blocks"]["ms"] + kern["reduce512"]["ms"]
+        st["kernels_ms"] = (kern["sha512_reduce"]["ms"]
                             + kern["decompress"]["ms"] * (2 if route == "device_sha" else 1)
                             + kern["ladder_sub_mul8"]["ms"])
         st["torch_glue_ms"] = st["device_ms"] - st["kernels_ms"]

@@ -19,9 +19,9 @@ default:
 - `PendingBatch` / `collect_pending` fetch one all-ok scalar per batch,
   and the bitmap only when that scalar says some lane failed.
 
-Two more device routes hash on the device, through the `sha512_blocks`
-and `reduce512` kernels (`ops.ed25519_verify.verify_batch` and
-`verify_batch_delta`):
+Two more device routes hash on the device, through the `sha512_reduce`
+kernel, SHA-512 and the reduction mod L in one launch
+(`ops.ed25519_verify.verify_batch` and `verify_batch_delta`):
 
 - `device_sha=True` (`_launch_device_sha`): a, r, s, the SHA-512-padded
   R||A||M words, the two-block flags and the live mask cross in one

@@ -1,43 +1,97 @@
-// SHA-512 of pre-padded lanes and the reduction of 512-bit values mod L,
-// one lane per thread: the challenge k = SHA-512(R || A || M) mod L of the
-// device-SHA and delta verify routes.
+// SHA-512 of pre-padded lanes and the reduction of 512-bit values mod L:
+// the challenge k = SHA-512(R || A || M) mod L of the device-SHA and delta
+// verify routes, as three kernels built from the same device functions.
 //
-// sha512_blocks computes cometbft_tpu/ops/sha512.py:131 sha512_two_blocks
-// (plain XLA, no Pallas): (B, 64) 32-bit big-endian words of up to two
-// padded 128-byte blocks (int32 bit patterns) and a (B,) two-block flag
-// (bool bytes) -> (B, 64) uint8, each lane's digest in hashlib's byte
-// order, which is what reduce512 takes. Lanes whose flag is false take the
-// state after block 1 and skip block 2.
+// sha512_blocks_kernel computes cometbft_tpu/ops/sha512.py:131
+// sha512_two_blocks (plain XLA, no Pallas): (B, 64) 32-bit big-endian words
+// of up to two padded 128-byte blocks (int32 bit patterns, rows 16-byte
+// aligned) and a (B,) two-block flag (bool bytes) -> (B, 64) uint8, each
+// lane's digest in hashlib's byte order. A lane whose flag is false takes
+// the state after block 1.
 //
-// reduce512 computes cometbft_tpu/ops/scalar.py:131 reduce512 (plain XLA):
-// (B, 64) uint8 little-endian 512-bit values -> (22, B) int32 canonical
-// 12-bit limbs < L, limb-major (limb j of lane l at j * B + l). The
-// reference runs Barrett (HAC 14.42) in base 2^12; this kernel runs the
+// reduce512_kernel computes cometbft_tpu/ops/scalar.py:131 reduce512 (plain
+// XLA): (B, 64) uint8 little-endian 512-bit values -> (22, B) int32
+// canonical 12-bit limbs < L, limb-major (limb j of lane l at j * B + l).
+// The reference runs Barrett (HAC 14.42) in base 2^12; this kernel runs the
 // same algorithm in base 2^32 (k = 8 words, mu = floor(2^512 / L) in 9
-// words, two conditional subtractions at the end). The result is
+// words, HAC's two conditional subtractions at the end). The result is
 // canonical, so it equals the reference's bit for bit.
 //
-// Bound on the H100: operations for sha512_blocks (about 52 32-bit
-// integer instructions a round, 80 rounds a block, against 64 a clock an
-// SM; 5 us for 10,240 two-block lanes, above the 1 us their 3.3 MB take);
-// bytes for reduce512 (152 B a lane, 0.5 us at B = 10,240, against 125
-// wide multiplies a lane).
-// Design: each thread keeps its eight state words and a rolling 16-word
-// schedule in registers over a fully unrolled round loop, so every index
-// is static; the 64-bit rotations compile to funnel shifts. K[80] is in
-// __constant__ memory: every thread of a warp reads the same K[t] in a
-// round, a broadcast. A lane reads its 256-byte row as 16-byte loads.
-// 32-thread blocks: 10,240 lanes give 320 blocks, two or three warps on
-// each of the 132 SMs. reduce512 keeps its multiprecision products in
-// registers as rows of 32x32->64 multiply-adds.
+// sha512_reduce_kernel computes reduce512(sha512_blocks(words, two)) in one
+// launch, the digest kept in registers: (B, 64) words and (B,) flags ->
+// (22, B) limbs. It is the one launch of the routes' challenge.
+//
+// Bound on the H100: operations for the hash (about 46 32-bit integer
+// instructions a round, 80 rounds a block, against 64 a clock an SM: 4.5 us
+// for 10,240 lanes of two blocks, above the 1 us their 3.3 MB take); bytes
+// for reduce512 (152 B a lane, 0.5 us at B = 10,240, against 125 wide
+// multiplies a lane); the fused kernel's 345 B a lane take 1.05 us, under
+// the hash's operations.
+//
+// Design. A lane's 160 rounds are one dependent chain, so at most one warp
+// a 32 lanes can compress: 320 warps for a 10,240-lane commit, fewer than
+// the card's 528 warp schedulers, each warp alone on its scheduler. What
+// sets the time is then how fast that one warp issues its instructions.
+// This file holds the designs timed against each other on the H100
+// (tools/kernel_sweep.py --sha-sources, one wrapper file a variant that
+// sets these macros and includes this file):
+//   SHA_DESIGN 1 (kept): one thread a lane, schedule and compression
+//   together, in a 16-round unrolled body run in a loop (the rotating names
+//   line up every 8 rounds; the message schedule is computed in place over
+//   a 16-word ring, W[t + 16] right after round t uses W[t]): about 1,500
+//   instructions, where PR 7's fully unrolled lane is about 3,700 (59 KB of
+//   code).
+//   SHA_DESIGN 2: a block is two warps on 32 lanes. The schedule warp
+//   expands the message schedule of both blocks and writes W[t] + K[t] into
+//   shared memory (40 KB), one 16-round chunk ahead of the compressing
+//   warp; one __syncthreads a chunk hands over.
+//   SHA_MADD 1: the 64-bit additions as 32-bit multiply-adds by a one the
+//   compiler cannot see (a kernel argument), meant for the FMA pipe.
+//   SHA_CHAIN 1: e = (d + h + wk) + Sigma1 + Ch, a shorter dependent chain
+//   for one more addition a round.
+//   SHA_UNROLL 2: two chunks a loop iteration. SHA_CHUNK 8: an 8-round body
+//   that rotates the ring by 8 after each chunk.
+//   reduce512: one lane a thread, REDUCE_BLOCK threads a block; the words of
+//   L and mu are immediates (the Barrett loops are unrolled), so the three
+//   zero words of L drop out of q3 * L. sha512_reduce runs the same Barrett
+//   step on the lane's thread after the last round.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef SHA_DESIGN
+#define SHA_DESIGN 1
+#endif
+#ifndef SHA_CHUNK
+#define SHA_CHUNK 16
+#endif
+#ifndef SHA_MADD
+#define SHA_MADD 0
+#endif
+#ifndef SHA_CHAIN
+#define SHA_CHAIN 0
+#endif
+#ifndef SHA_UNROLL
+#define SHA_UNROLL 1
+#endif
+
 namespace {
 
+constexpr int SHA_LANES = 32;  // lanes a block: one compressing warp
+#if SHA_DESIGN == 2
+constexpr int SHA_THREADS = 2 * SHA_LANES;  // and one schedule warp
+constexpr int SHA_SMEM_BYTES = 2 * 80 * SHA_LANES * 8;
+#else
 constexpr int SHA_THREADS = 32;
-constexpr int REDUCE_THREADS = 64;
+constexpr int SHA_SMEM_BYTES = 0;
+#endif
+constexpr int CHUNK = SHA_CHUNK;         // rounds of the unrolled body
+constexpr int BLOCK_CHUNKS = 80 / CHUNK;
+#ifdef REDUCE_BLOCK
+constexpr int REDUCE_THREADS = REDUCE_BLOCK;
+#else
+constexpr int REDUCE_THREADS = 32;
+#endif
 constexpr int NLIMBS12 = 22;
 
 __constant__ uint64_t K512[80] = {
@@ -68,102 +122,200 @@ __constant__ uint64_t IV512[8] = {
     0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full, 0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull,
 };
 
-// L = 2^252 + 27742317777372353535851937790883648493 and mu = floor(2^512 / L),
-// little-endian 32-bit words
-__constant__ uint32_t L_W[8] = {
-    0x5CF5D3EDu, 0x5812631Au, 0xA2F79CD6u, 0x14DEF9DEu,
-    0x00000000u, 0x00000000u, 0x00000000u, 0x10000000u,
-};
-__constant__ uint32_t MU_W[9] = {
-    0x0A2C131Bu, 0xED9CE5A3u, 0x086329A7u, 0x2106215Du, 0xFFFFFFEBu,
-    0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x0000000Fu,
-};
+// The little-endian 32-bit words of L = 2^252 + 27742317777372353535851937790883648493
+// and of mu = floor(2^512 / L). Read only at unrolled (constant) indices, so
+// each word is an immediate operand.
+__device__ __forceinline__ uint32_t l_word(int i) {
+  constexpr uint32_t L_W[8] = {
+      0x5CF5D3EDu, 0x5812631Au, 0xA2F79CD6u, 0x14DEF9DEu,
+      0x00000000u, 0x00000000u, 0x00000000u, 0x10000000u,
+  };
+  return L_W[i];
+}
+__device__ __forceinline__ uint32_t mu_word(int i) {
+  constexpr uint32_t MU_W[9] = {
+      0x0A2C131Bu, 0xED9CE5A3u, 0x086329A7u, 0x2106215Du, 0xFFFFFFEBu,
+      0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x0000000Fu,
+  };
+  return MU_W[i];
+}
 
 __device__ __forceinline__ uint64_t rotr(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
-
-__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
-  x = ((x & 0x00FF00FF00FF00FFull) << 8) | ((x >> 8) & 0x00FF00FF00FF00FFull);
-  x = ((x & 0x0000FFFF0000FFFFull) << 16) | ((x >> 16) & 0x0000FFFF0000FFFFull);
-  return (x << 32) | (x >> 32);
+__device__ __forceinline__ uint64_t bsig0(uint64_t a) { return rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39); }
+__device__ __forceinline__ uint64_t bsig1(uint64_t e) { return rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41); }
+__device__ __forceinline__ uint64_t ssig0(uint64_t w) { return rotr(w, 1) ^ rotr(w, 8) ^ (w >> 7); }
+__device__ __forceinline__ uint64_t ssig1(uint64_t w) { return rotr(w, 19) ^ rotr(w, 61) ^ (w >> 6); }
+__device__ __forceinline__ uint64_t ch(uint64_t e, uint64_t f, uint64_t g) { return (e & f) ^ (~e & g); }
+__device__ __forceinline__ uint64_t maj(uint64_t a, uint64_t b, uint64_t c) {
+  return (a & b) ^ (a & c) ^ (b & c);
 }
 
-// One SHA-512 block (FIPS 180-4, section 6.4.2) on the state st, message
-// words w[0..15] (big-endian values); w is overwritten by the schedule.
-__device__ __forceinline__ void compress(uint64_t st[8], uint64_t w[16]) {
-  uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int t = 0; t < 80; ++t) {
-    if (t >= 16) {
-      const uint64_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-      const uint64_t s0 = rotr(w15, 1) ^ rotr(w15, 8) ^ (w15 >> 7);
-      const uint64_t s1 = rotr(w2, 19) ^ rotr(w2, 61) ^ (w2 >> 6);
-      w[t & 15] += s0 + w[(t - 7) & 15] + s1;  // w[t - 16] + ...
-    }
-    const uint64_t t1 = h + (rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41)) + ((e & f) ^ (~e & g)) +
-                        K512[t] + w[t & 15];
-    const uint64_t t2 = (rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39)) + ((a & b) ^ (a & c) ^ (b & c));
-    h = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + t2;
+__device__ __forceinline__ uint32_t bswap32(uint32_t v) {
+  return (v >> 24) | ((v >> 8) & 0xFF00u) | ((v << 8) & 0xFF0000u) | (v << 24);
+}
+
+// 64-bit addition; with SHA_MADD as two multiply-adds by `one` (1 at run time).
+struct Adder {
+  uint32_t one;
+  __device__ __forceinline__ uint64_t operator()(uint64_t a, uint64_t b) const {
+#if SHA_MADD
+    const uint64_t t = (uint64_t)(uint32_t)b * one + a;
+    return t + ((uint64_t)((uint32_t)(b >> 32) * one) << 32);
+#else
+    return a + b;
+#endif
   }
-  st[0] += a;
-  st[1] += b;
-  st[2] += c;
-  st[3] += d;
-  st[4] += e;
-  st[5] += f;
-  st[6] += g;
-  st[7] += h;
+};
+
+// One round (FIPS 180-4, section 6.4.2) with wk = W[t] + K[t]; d and h take
+// the new e and a.
+__device__ __forceinline__ void sha_round(uint64_t a, uint64_t b, uint64_t c, uint64_t& d,
+                                          uint64_t e, uint64_t f, uint64_t g, uint64_t& h,
+                                          uint64_t wk, Adder add) {
+#if SHA_CHAIN
+  // e = (d + h + wk) + Sigma1 + Ch: one three-term addition after Sigma1 and Ch
+  const uint64_t s1 = bsig1(e), c1 = ch(e, f, g), hk = add(h, wk);
+  const uint64_t t1 = add(add(hk, s1), c1);
+  d = add(add(add(d, hk), s1), c1);
+#else
+  const uint64_t t1 = add(add(add(h, wk), bsig1(e)), ch(e, f, g));
+  d = add(d, t1);
+#endif
+  h = add(add(t1, bsig0(a)), maj(a, b, c));
 }
 
-__global__ void __launch_bounds__(SHA_THREADS)
-    sha512_blocks_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
-                         uint64_t* __restrict__ out, int64_t batch) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
+// CHUNK rounds on the working variables s (a at s[0] on entry and on exit),
+// round i taking wk(i). At round i, a is s[(8 - i) & 7]: the names rotate
+// instead of the values.
+template <typename WK>
+__device__ __forceinline__ void rounds(uint64_t s[8], WK wk, Adder add) {
+#pragma unroll
+  for (int i = 0; i < CHUNK; ++i) {
+    const int o = 16 - i;
+    sha_round(s[o & 7], s[(o + 1) & 7], s[(o + 2) & 7], s[(o + 3) & 7], s[(o + 4) & 7],
+              s[(o + 5) & 7], s[(o + 6) & 7], s[(o + 7) & 7], wk(i), add);
+  }
+}
+
+// The 16 words of block blk of a lane's row, as big-endian 64-bit values.
+__device__ __forceinline__ void load_block(const uint4* row, int blk, uint64_t w[16]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const uint4 v = row[blk * 8 + q];
+    w[2 * q] = ((uint64_t)v.x << 32) | v.y;
+    w[2 * q + 1] = ((uint64_t)v.z << 32) | v.w;
+  }
+}
+
+// The schedule in place over a 16-word ring: w[i] holds W[t] and takes W[t + 16].
+__device__ __forceinline__ void schedule_step(uint64_t w[16], int i, Adder add) {
+  w[i] = add(add(w[i], ssig0(w[(i + 1) & 15])), add(w[(i + 9) & 15], ssig1(w[(i + 14) & 15])));
+}
+
+#if SHA_DESIGN == 2
+// The hash of the lane of this thread's column of the block: both warps call
+// it and reach every barrier; st holds the digest's words on the compressing
+// warp (threads 0..31). Rows past the batch repeat its last lane.
+__device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
+                                            const uint8_t* __restrict__ two_flags,
+                                            int64_t batch, uint64_t st[8], Adder add) {
+  extern __shared__ uint32_t smem[];
+  const int col = threadIdx.x % SHA_LANES;
+  const bool scheduler = threadIdx.x >= SHA_LANES;
+  int64_t lane = (int64_t)blockIdx.x * SHA_LANES + col;
+  lane = lane < batch ? lane : batch - 1;
+  const bool two = two_flags[lane] != 0;
+  const int chunks = __syncthreads_or(two) ? 2 * BLOCK_CHUNKS : BLOCK_CHUNKS;
+  uint64_t* wk_col = reinterpret_cast<uint64_t*>(smem) + col;  // W[t] + K[t] at t * SHA_LANES
   const uint4* row = reinterpret_cast<const uint4*>(words + lane * 64);
-  uint64_t st[8];
+  uint64_t w[16], s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] = s[i] = IV512[i];
+#pragma unroll 1
+  for (int c = 0; c <= chunks; ++c) {
+    if (scheduler) {
+      if (c < chunks) {  // chunk c of the schedule
+        const int sub = c % BLOCK_CHUNKS;
+        if (sub == 0) {
+          load_block(row, c / BLOCK_CHUNKS, w);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) schedule_step(w, i, add);
+        }
+        uint64_t* dst = wk_col + c * CHUNK * SHA_LANES;
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) dst[i * SHA_LANES] = add(w[i], K512[sub * CHUNK + i]);
+      }
+    } else if (c > 0) {  // rounds of chunk c - 1
+      const uint64_t* src = wk_col + (c - 1) * CHUNK * SHA_LANES;
+      rounds(s, [&](int i) { return src[i * SHA_LANES]; }, add);
+      if (c % BLOCK_CHUNKS == 0) {  // the end of a block
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const uint64_t v = add(st[i], s[i]);
+          if (c == BLOCK_CHUNKS || two) st[i] = v;
+          s[i] = v;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+#else
+// CHUNK rounds from round t0 on s with the message words in the ring w
+// (w[i] holds W[t0 + i]); with kSchedule, w[i] then takes W[t0 + i + 16].
+// An 8-round chunk rotates the ring by 8 after its rounds, so the next
+// chunk's words are again at w[0..7].
+template <bool kSchedule>
+__device__ __forceinline__ void chunk(uint64_t s[8], uint64_t w[16], int t0, Adder add) {
+  rounds(s, [&](int i) {
+    const uint64_t wk = add(w[i], K512[t0 + i]);
+    if (kSchedule) schedule_step(w, i, add);
+    return wk;
+  }, add);
+  if (CHUNK == 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint64_t v = w[i];
+      w[i] = w[i + 8];
+      w[i + 8] = v;
+    }
+  }
+}
+
+// The hash of this thread's lane, schedule and rounds on the one thread.
+__device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
+                                            const uint8_t* __restrict__ two_flags,
+                                            int64_t lane, uint64_t st[8], Adder add) {
+  const uint4* row = reinterpret_cast<const uint4*>(words + lane * 64);
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = IV512[i];
-  const int nblocks = two[lane] ? 2 : 1;
+  const int nblocks = two_flags[lane] ? 2 : 1;
 #pragma unroll 1
   for (int blk = 0; blk < nblocks; ++blk) {
-    uint64_t w[16];
+    uint64_t w[16], s[8];
+    load_block(row, blk, w);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint4 v = row[blk * 8 + q];
-      w[2 * q] = ((uint64_t)v.x << 32) | v.y;
-      w[2 * q + 1] = ((uint64_t)v.z << 32) | v.w;
-    }
-    compress(st, w);
+    for (int i = 0; i < 8; ++i) s[i] = st[i];
+#if SHA_UNROLL == 2
+#pragma unroll 2
+#else
+#pragma unroll 1
+#endif
+    for (int t = 0; t < 64; t += CHUNK) chunk<true>(s, w, t, add);
+#pragma unroll 1
+    for (int t = 64; t < 80; t += CHUNK) chunk<false>(s, w, t, add);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i] = add(st[i], s[i]);
   }
-  uint64_t* o = out + lane * 8;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = bswap64(st[i]);  // big-endian words: hashlib order
 }
+#endif
 
-__global__ void __launch_bounds__(REDUCE_THREADS)
-    reduce512_kernel(const uint8_t* __restrict__ digest, int32_t* __restrict__ out,
-                     int64_t batch) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= batch) return;
-  uint32_t x[16];  // little-endian 32-bit words of the 512-bit value
-  const uint4* row = reinterpret_cast<const uint4*>(digest + lane * 64);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint4 v = row[q];
-    x[4 * q] = v.x;
-    x[4 * q + 1] = v.y;
-    x[4 * q + 2] = v.z;
-    x[4 * q + 3] = v.w;
-  }
-  // q2 = floor(x / b^7) * mu, b = 2^32 (9 x 9 words -> 18)
+// x (16 little-endian 32-bit words of a 512-bit value) mod L -> (22, batch)
+// 12-bit limbs of lane `lane`, by Barrett in base b = 2^32.
+__device__ __forceinline__ void reduce_store(const uint32_t x[16], int32_t* __restrict__ out,
+                                             int64_t lane, int64_t batch) {
+  // q2 = floor(x / b^7) * mu (9 x 9 words -> 18)
   uint32_t q2[18];
 #pragma unroll
   for (int i = 0; i < 18; ++i) q2[i] = 0;
@@ -172,13 +324,13 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
     uint64_t carry = 0;
 #pragma unroll
     for (int j = 0; j < 9; ++j) {
-      const uint64_t t = (uint64_t)x[7 + i] * MU_W[j] + q2[i + j] + carry;
+      const uint64_t t = (uint64_t)x[7 + i] * mu_word(j) + q2[i + j] + carry;
       q2[i + j] = (uint32_t)t;
       carry = t >> 32;
     }
     q2[i + 9] = (uint32_t)carry;
   }
-  // q3 = floor(q2 / b^9) (words 9..17); r2 = q3 * L mod b^9
+  // q3 = floor(q2 / b^9) (words 9..17); r2 = q3 * L mod b^9 (L's zero words drop out)
   uint32_t r2[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) r2[i] = 0;
@@ -188,7 +340,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (i + j < 9) {
-        const uint64_t t = (uint64_t)q2[9 + i] * L_W[j] + r2[i + j] + carry;
+        const uint64_t t = (uint64_t)q2[9 + i] * l_word(j) + r2[i + j] + carry;
         r2[i + j] = (uint32_t)t;
         carry = t >> 32;
       }
@@ -214,7 +366,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
     borrow = 0;
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
-      const uint64_t t = (uint64_t)r[i] - (i < 8 ? L_W[i] : 0u) - borrow;
+      const uint64_t t = (uint64_t)r[i] - (i < 8 ? l_word(i) : 0u) - borrow;
       d[i] = (uint32_t)t;
       borrow = (t >> 32) & 1;
     }
@@ -230,16 +382,87 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   }
 }
 
-unsigned blocks_for(int64_t batch, int threads) {
-  return (unsigned)((batch + threads - 1) / threads);
+// The digest's words as the little-endian 32-bit words of k's 512 bits
+// (hashlib's byte order read little-endian).
+__device__ __forceinline__ void digest_words(const uint64_t st[8], uint32_t x[16]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x[2 * i] = bswap32((uint32_t)(st[i] >> 32));
+    x[2 * i + 1] = bswap32((uint32_t)st[i]);
+  }
+}
+
+#if SHA_DESIGN == 2
+#define SHA_LANE_OF_THREAD()                                   \
+  uint64_t st[8];                                              \
+  sha512_lane(words, two, batch, st, Adder{one});              \
+  const int64_t lane = (int64_t)blockIdx.x * SHA_LANES + threadIdx.x; \
+  if (threadIdx.x >= SHA_LANES || lane >= batch) return;
+#else
+#define SHA_LANE_OF_THREAD()                                   \
+  const int64_t lane = (int64_t)blockIdx.x * SHA_LANES + threadIdx.x; \
+  if (lane >= batch) return;                                   \
+  uint64_t st[8];                                              \
+  sha512_lane(words, two, lane, st, Adder{one});
+#endif
+
+__global__ void __launch_bounds__(SHA_THREADS)
+    sha512_blocks_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
+                         uint32_t* __restrict__ out, int64_t batch, uint32_t one) {
+  SHA_LANE_OF_THREAD()
+  uint32_t x[16];
+  digest_words(st, x);
+  uint4* o = reinterpret_cast<uint4*>(out + lane * 16);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) o[q] = uint4{x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]};
+}
+
+__global__ void __launch_bounds__(SHA_THREADS)
+    sha512_reduce_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
+                         int32_t* __restrict__ out, int64_t batch, uint32_t one) {
+  SHA_LANE_OF_THREAD()
+  uint32_t x[16];
+  digest_words(st, x);
+  reduce_store(x, out, lane, batch);
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    reduce512_kernel(const uint8_t* __restrict__ digest, int32_t* __restrict__ out,
+                     int64_t batch) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= batch) return;
+  uint32_t x[16];
+  const uint4* row = reinterpret_cast<const uint4*>(digest + lane * 64);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint4 v = row[q];
+    x[4 * q] = v.x;
+    x[4 * q + 1] = v.y;
+    x[4 * q + 2] = v.z;
+    x[4 * q + 3] = v.w;
+  }
+  reduce_store(x, out, lane, batch);
+}
+
+unsigned blocks_for(int64_t batch, int lanes) {
+  return (unsigned)((batch + lanes - 1) / lanes);
 }
 
 }  // namespace
 
 extern "C" int sha512_blocks_launch(const void* words, const void* two, void* out, int64_t batch,
                                     void* stream) {
-  sha512_blocks_kernel<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, (const uint8_t*)two, (uint64_t*)out, batch);
+  sha512_blocks_kernel<<<blocks_for(batch, SHA_LANES), SHA_THREADS, SHA_SMEM_BYTES,
+                         (cudaStream_t)stream>>>((const uint32_t*)words, (const uint8_t*)two,
+                                                 (uint32_t*)out, batch, 1u);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sha512_reduce_launch(const void* words, const void* two, void* out, int64_t batch,
+                                    void* stream) {
+  sha512_reduce_kernel<<<blocks_for(batch, SHA_LANES), SHA_THREADS, SHA_SMEM_BYTES,
+                         (cudaStream_t)stream>>>((const uint32_t*)words, (const uint8_t*)two,
+                                                 (int32_t*)out, batch, 1u);
   return (int)cudaGetLastError();
 }
 

@@ -9,8 +9,9 @@ with liberal (ZIP-215) decoding of A and R. k = SHA-512(R||A||M) mod L
 is hashed on the host for the prehashed functions, and on the device for
 `verify_batch` (padded messages from the host) and `verify_batch_delta`
 (messages rebuilt on the device from a shared prefix and suffix and
-per-lane middle bytes): there the `sha512_blocks` and `reduce512`
-kernels run before `decompress` and the ladder. Every function returns
+per-lane middle bytes): there one `sha512_reduce` kernel (the hash and
+the reduction mod L in one launch) runs before `decompress` and the
+ladder. Every function returns
 (bits, all_ok) with both left on the device: fetching the one all-ok
 scalar is the happy path, the bitmap crosses only when some lane failed.
 """
@@ -34,7 +35,7 @@ def _finish(ok_a, ok_r, s_ok, X, Y, Z, live):
 
 def _challenge_digits(msg_words, two_blocks):
     """k = SHA-512(padded message) mod L as (64, B) signed digits."""
-    return SC.recode_signed(SC.reduce512(H.sha512_digest(msg_words, two_blocks)))
+    return SC.recode_signed(SC.sha512_reduce(msg_words, two_blocks))
 
 
 def verify_batch(a_bytes, r_bytes, s_bytes, msg_words, two_blocks, live):

@@ -50,7 +50,7 @@ N_REGIONS = 39
 # One plain integer per kernel, incremented where the kernel is launched.
 launches = {"fe_mul": 0, "fe_sq": 0, "decompress": 0, "ladder_sub_mul8": 0,
             "accum_weight": 0, "region_sum": 0, "window_combine": 0, "sha512_blocks": 0,
-            "reduce512": 0}
+            "reduce512": 0, "sha512_reduce": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -71,6 +71,7 @@ _SIGNATURES = {
     "sha512_kernels": {
         "sha512_blocks_launch": [_P, _P, _P, _I64, _P],
         "reduce512_launch": [_P, _P, _I64, _P],
+        "sha512_reduce_launch": [_P, _P, _P, _I64, _P],
     },
 }
 
@@ -326,18 +327,23 @@ def window_combine(sums: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_sha_inputs(words: torch.Tensor, two_blocks: torch.Tensor, kernel: str) -> int:
+    batch = words.shape[0]
+    _check(words, (batch, 64), f"{kernel} words")
+    _check(two_blocks, (batch,), f"{kernel} two_blocks", torch.bool)
+    _check_rows16(words, f"{kernel} words")
+    if two_blocks.device != words.device:
+        raise ValueError(f"{kernel}: operands on different devices")
+    return batch
+
+
 def sha512_blocks(words: torch.Tensor, two_blocks: torch.Tensor) -> torch.Tensor:
     """SHA-512 of each lane's pre-padded blocks: words (B, 64) int32, the
     big-endian 32-bit words' bit patterns, 16-byte aligned; two_blocks (B,)
     bool. Returns (B, 64) uint8, each lane's digest in hashlib's byte
     order (byte i weighs 256^i in k); a lane whose flag is false takes the
     state after block 1."""
-    batch = words.shape[0]
-    _check(words, (batch, 64), "sha512_blocks words")
-    _check(two_blocks, (batch,), "sha512_blocks two_blocks", torch.bool)
-    _check_rows16(words, "sha512_blocks words")
-    if two_blocks.device != words.device:
-        raise ValueError("sha512_blocks: operands on different devices")
+    batch = _check_sha_inputs(words, two_blocks, "sha512_blocks")
     f = _fn("sha512_kernels", "sha512_blocks_launch")
     out = torch.empty((batch, 64), dtype=torch.uint8, device=words.device)
     _launch(f, "sha512_blocks", words.device, batch,
@@ -354,4 +360,17 @@ def reduce512(digest: torch.Tensor) -> torch.Tensor:
     f = _fn("sha512_kernels", "reduce512_launch")
     out = torch.empty((NLIMBS, batch), dtype=torch.int32, device=digest.device)
     _launch(f, "reduce512", digest.device, batch, digest.data_ptr(), out.data_ptr())
+    return out
+
+
+def sha512_reduce(words: torch.Tensor, two_blocks: torch.Tensor) -> torch.Tensor:
+    """`reduce512(sha512_blocks(words, two_blocks))` in one launch, the
+    digest kept in registers: words (B, 64) int32, 16-byte aligned;
+    two_blocks (B,) bool -> (22, B) int32 canonical 12-bit limbs of each
+    lane's SHA-512 mod L."""
+    batch = _check_sha_inputs(words, two_blocks, "sha512_reduce")
+    f = _fn("sha512_kernels", "sha512_reduce_launch")
+    out = torch.empty((NLIMBS, batch), dtype=torch.int32, device=words.device)
+    _launch(f, "sha512_reduce", words.device, batch,
+            words.data_ptr(), two_blocks.data_ptr(), out.data_ptr())
     return out

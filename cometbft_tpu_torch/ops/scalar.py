@@ -7,6 +7,11 @@ Twin of `cometbft_tpu/ops/scalar.py`, on the same 12-bit limbs:
   (`csrc/sha512_kernels.cu`); on a CPU tensor `reduce512_plain`, the
   reference's Barrett reduction (HAC Alg 14.42) in base-2^12 limbs. The
   output is canonical, so the two agree bit for bit.
+- `sha512_reduce`: padded R||A||M words -> k = SHA-512 mod L, the
+  challenge of the device-SHA and delta routes. On a CUDA tensor one
+  `sha512_reduce` kernel launch, the digest kept in registers; on a CPU
+  tensor `sha512_reduce_plain`, `reduce512_plain` of
+  `sha512.sha512_digest_plain`.
 - `recode_signed`: scalar -> 64 signed radix-16 digits in [-8, 7] for the
   windowed ladder, via the add-0x888...8 trick (adding 8 to every nibble
   with full carry propagation turns unsigned nibbles into signed digits).
@@ -23,6 +28,7 @@ import torch
 
 from . import field as F
 from . import kernels as K
+from . import sha512 as H
 
 BITS = F.BITS
 MASK = F.MASK
@@ -122,6 +128,23 @@ def reduce512(digest_bytes):
     if F.on_gpu(digest_bytes):
         return K.reduce512(digest_bytes.contiguous())
     return reduce512_plain(digest_bytes)
+
+
+def sha512_reduce_plain(words, two_blocks=None):
+    """Plain PyTorch version of the `sha512_reduce` kernel: (B, 64) padded
+    words -> (22, B) int32 canonical limbs of SHA-512 mod L."""
+    return reduce512_plain(H.sha512_digest_plain(words, two_blocks))
+
+
+def sha512_reduce(words, two_blocks=None):
+    """(B, 64) padded words (int64 < 2^32 or int32 bit patterns) and (B,)
+    two-block flags -> (22, B) int32 canonical limbs of each lane's
+    SHA-512 mod L: one kernel launch on a CUDA tensor,
+    `sha512_reduce_plain` on a CPU tensor."""
+    if F.on_gpu(words):
+        tb = H.two_blocks_mask(two_blocks, words.shape[0], words.device)
+        return K.sha512_reduce(words.to(torch.int32).contiguous(), tb.contiguous())
+    return sha512_reduce_plain(words, two_blocks)
 
 
 def lt_l(s_bytes):

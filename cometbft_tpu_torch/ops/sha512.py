@@ -18,7 +18,8 @@ plain version, `sha512_digest_plain`. The plain version keeps each
 64-bit word as two 32-bit halves, each in an int64 tensor masked with
 0xFFFFFFFF after every add (torch's uint32 has no add or shifts on the
 CPU, and int32 `>>` is arithmetic), as the reference keeps (hi, lo)
-uint32 pairs.
+uint32 pairs. The verify routes take the challenge through
+`scalar.sha512_reduce`, which hashes and reduces mod L in one launch.
 
 Constants are derived, not transcribed: K[t] = frac(cbrt(prime_t)) and
 IV[i] = frac(sqrt(prime_i)) scaled to 64 bits, with exact integer roots,
@@ -136,7 +137,7 @@ def _compress(state, w):
     return [_add2(s, v) for s, v in zip(state, (a, b, c, d, e, f, g, h))]
 
 
-def _two_blocks_mask(two_blocks, batch: int, device) -> torch.Tensor:
+def two_blocks_mask(two_blocks, batch: int, device) -> torch.Tensor:
     if two_blocks is None:
         return torch.ones(batch, dtype=torch.bool, device=device)
     return two_blocks.to(device=device, dtype=torch.bool)
@@ -157,7 +158,7 @@ def sha512_two_blocks_plain(words, two_blocks=None):
         block = [(w[:, blk * 32 + 2 * j], w[:, blk * 32 + 2 * j + 1]) for j in range(16)]
         state = _compress(state, block)
         states.append(state)
-    tb = _two_blocks_mask(two_blocks, batch, w.device)
+    tb = two_blocks_mask(two_blocks, batch, w.device)
     one, two = ([torch.stack([s[h] for s in st]) for h in range(2)] for st in states)
     return torch.where(tb, two[0], one[0]), torch.where(tb, two[1], one[1])
 
@@ -190,7 +191,7 @@ def sha512_digest(words, two_blocks=None):
     `sha512_blocks` launch on a CUDA tensor, the plain version on a CPU
     tensor."""
     if F.on_gpu(words):
-        tb = _two_blocks_mask(two_blocks, words.shape[0], words.device)
+        tb = two_blocks_mask(two_blocks, words.shape[0], words.device)
         return K.sha512_blocks(words.to(torch.int32).contiguous(), tb.contiguous())
     return sha512_digest_plain(words, two_blocks)
 

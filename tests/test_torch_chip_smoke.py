@@ -31,21 +31,21 @@ def test_rlc_submit_gives_up_after_repeated_declines(monkeypatch):
 
 
 def test_sources_name_every_kernel_and_the_function_it_replaces():
-    """`SOURCES` lists the nine kernels, the same names as the launch
+    """`SOURCES` lists the ten kernels, the same names as the launch
     counts; each source exists; each kernel's first `file:line` of the JAX
     package is the `def` of the function it computes (a Pallas kernel, or
     a plain-XLA function for `region_sum`, `window_combine`,
-    `sha512_blocks` and `reduce512`); the device-SHA routes' kernels are
-    in it."""
+    `sha512_blocks`, `reduce512` and the fused `sha512_reduce`); the
+    device-SHA routes' kernels are in it."""
     from cometbft_tpu_torch.ops import kernels as K
 
-    assert list(chip_smoke.SOURCES) == list(K.launches) and len(K.launches) == 9
+    assert list(chip_smoke.SOURCES) == list(K.launches) and len(K.launches) == 10
     for name, (source, replaces) in chip_smoke.SOURCES.items():
         assert (chip_smoke.ROOT / source).is_file(), source
         path, line = replaces.split(",")[0].split()[0].split(":")
         text = (chip_smoke.ROOT / path).read_text().splitlines()[int(line) - 1]
         assert text.startswith("def "), (name, text)
-    assert set(chip_smoke.SHA_KERNELS) <= set(chip_smoke.SOURCES)
+    assert set(chip_smoke.SHA_KERNELS) | set(chip_smoke.SHA_STANDALONE) <= set(chip_smoke.SOURCES)
 
 
 def test_bound_counts():
@@ -53,3 +53,22 @@ def test_bound_counts():
     block's 32-bit instructions and `reduce512`'s wide multiplies."""
     assert chip_smoke.SHA_INT_OPS_PER_BLOCK == 3696
     assert chip_smoke.REDUCE_WIDE_MULS == 81 + 44
+
+
+@pytest.mark.parametrize("counts, ok", [
+    ({"sha512_reduce": 34, "sha512_blocks": 0, "reduce512": 0}, True),
+    ({"sha512_reduce": 33, "sha512_blocks": 0, "reduce512": 0}, False),
+    ({"sha512_reduce": 34, "sha512_blocks": 34, "reduce512": 0}, False),
+    ({"sha512_reduce": 34, "sha512_blocks": 0, "reduce512": 1}, False),
+    ({"sha512_reduce": 0, "sha512_blocks": 34, "reduce512": 34}, False),
+])
+def test_challenge_launch_check(counts, ok):
+    """The device-SHA and delta routes' launch check: `sha512_reduce`
+    once a commit (34 commits here), `sha512_blocks` and `reduce512`
+    never; the routes check `decompress` and the ladder besides."""
+    assert chip_smoke.SHA_KERNELS == ("sha512_reduce", "decompress", "ladder_sub_mul8")
+    if ok:
+        chip_smoke.check_challenge_launches("device_sha", counts, 34)
+    else:
+        with pytest.raises(AssertionError, match="34 sha512_reduce launches"):
+            chip_smoke.check_challenge_launches("device_sha", counts, 34)

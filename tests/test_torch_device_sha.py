@@ -107,3 +107,37 @@ def test_device_sha_route_matches_reference_verifier(monkeypatch, jax_verify_bat
     want = [ref.verify(*c) for c in cases]
     assert want[26] and not want[27]
     assert pending.result() == jpending.result() == (False, want)
+
+
+def test_oversize_lane_with_s_at_least_l_rejected_unlike_the_reference(monkeypatch):
+    """A lane over two SHA-512 blocks whose S >= L, under a small-order A
+    (the identity key 01 00..00, a 200-byte message, S = L + 1): the port
+    rejects it. `add()` zeroes such a signature; the reference's
+    `PendingBatch._finalize_fast` then verifies the oversize lane as
+    `ref.verify(pub, msg, zeros)`, which accepts: R = 0 has order 4 and
+    S = 0, so [8](-R - [k]A) is the identity for a small-order A. That is a
+    fault of the reference (ZIP-215 and its own `add()` reject S >= L),
+    recorded here so this test says so if the reference changes."""
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+    ident = bytes([1]) + bytes(31)
+    msg = bytes(np.random.default_rng(10).integers(0, 256, 200, dtype=np.uint8))
+    seed = bytes(range(32, 64))
+    sig = ref.sign(seed, msg)[:32] + (ref.L + 1).to_bytes(32, "little")
+    zeros = bytes(64)
+    assert not ref.verify(ident, msg, sig)
+    assert ref.verify(ident, msg, zeros)  # what the reference's host check runs
+
+    pending = E.PendingBatch(torch.ones(1, dtype=torch.bool), torch.tensor(True), 1, [True],
+                             [(ident, msg, zeros)], [0])
+    assert pending.result() == (False, [False])
+    jpending = JE.PendingBatch(np.array([True]), np.array(True), 1, [True],
+                               [(ident, msg, zeros)], [0])
+    assert jpending._finalize_fast(True) == (True, [True])  # the reference's fault
+
+    short = b"a vote"
+    bv = E.Ed25519BatchVerifier(device="cpu", device_sha=True)
+    assert not bv.add(E.Ed25519PubKey(ident), msg, sig)
+    assert bv.add(E.Ed25519PubKey(ref.pubkey_from_seed(seed)), short, ref.sign(seed, short))
+    pending = bv.submit()
+    assert pending._path == "device_sha" and pending._oversize_idx == [0]
+    assert pending.result() == (False, [False, True])

@@ -368,9 +368,33 @@ def test_reduce512_ragged_batches(dev, n):
     assert torch.equal(K.reduce512(digest[:n].to(dev)), full[:, :n])
 
 
+def test_sha512_reduce_matches_plain_and_hashlib(dev):
+    """The fused hash and reduction, one launch: equal to the plain
+    composition, and to Python's `% L` of hashlib's digest."""
+    import hashlib
+
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    msgs, words, two = sha_inputs(np.random.default_rng(16), 4096)
+    before = K.launches["sha512_reduce"]
+    got = SC.sha512_reduce(words.to(dev), two.to(dev)).cpu()
+    assert K.launches["sha512_reduce"] == before + 1
+    assert torch.equal(got, SC.sha512_reduce_plain(words, two))
+    assert [sum(int(x) << (12 * i) for i, x in enumerate(got[:, j])) for j in range(64)] == [
+        int.from_bytes(hashlib.sha512(m).digest(), "little") % SC.L_INT for m in msgs[:64]]
+
+
+@pytest.mark.parametrize("n", [1, 3, 70, 1027])
+def test_sha512_reduce_ragged_batches(dev, n):
+    _, words, two = sha_inputs(np.random.default_rng(17), 1027)
+    full = K.sha512_reduce(words.to(dev), two.to(dev))
+    assert torch.equal(K.sha512_reduce(words[:n].to(dev), two[:n].to(dev)), full[:, :n])
+
+
 def test_device_sha_and_delta_routes_on_the_card(dev, monkeypatch):
     """300 vote-shaped signatures with a bad lane through each route: the
-    exact bitmap, and each route's kernels launched once a submit."""
+    exact bitmap, and each route's kernels launched once a submit: the
+    challenge through `sha512_reduce`, neither standalone kernel."""
     from cometbft_tpu_torch.crypto import ed25519 as E
     from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
 
@@ -386,6 +410,7 @@ def test_device_sha_and_delta_routes_on_the_card(dev, monkeypatch):
         torch.cuda.synchronize()
         ran = {k: K.launches[k] - before[k] for k in K.launches}
         assert pending._path == path
-        assert ran["sha512_blocks"] == ran["reduce512"] == ran["ladder_sub_mul8"] == 1, ran
+        assert ran["sha512_reduce"] == ran["ladder_sub_mul8"] == 1, ran
+        assert ran["sha512_blocks"] == ran["reduce512"] == 0, ran
         ok, bits = pending.result()
         assert not ok and [i for i, b in enumerate(bits) if not b] == [17]

@@ -89,6 +89,14 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width) {
   __syncthreads();
   return r;
 }
+inline int __syncthreads_or(int pred) {
+  g_slots[threadIdx.x] = pred != 0;
+  __syncthreads();
+  int any = 0;
+  for (unsigned t = 0; t < blockDim.x; ++t) any |= g_slots[t] != 0;
+  __syncthreads();
+  return any;
+}
 inline void emu_entry() {
   (*g_body)();
   g_done[g_cur] = 1;
@@ -212,22 +220,27 @@ int main(int argc, char** argv) {
 int main(int argc, char** argv) {
   const std::string kind = argv[1], d = argv[3];
   const long B = atol(argv[2]);
-  if (kind == "sha512") {  // words (B, 64), two (B,) as int32 0/1 -> digest (B, 64) bytes
-    auto words = rd(d + "/words", 64 * B), two32 = rd(d + "/two", B);
-    std::vector<uint8_t> two(two32.begin(), two32.end());
-    std::vector<int32_t> out(16 * B, -1);
-    emu_launch((B + SHA_THREADS - 1) / SHA_THREADS, SHA_THREADS, 0, [&] {
-      sha512_blocks_kernel((const uint32_t*)words.data(), two.data(), (uint64_t*)out.data(), B);
-    });
-    wr(d + "/out", out);
-  } else {  // digest (B, 64) bytes -> (22, B) limbs
+  if (kind == "reduce512") {  // digest (B, 64) bytes -> (22, B) limbs
     auto digest = rd(d + "/digest", 16 * B);
     std::vector<int32_t> out(22 * B, -1);
     emu_launch((B + REDUCE_THREADS - 1) / REDUCE_THREADS, REDUCE_THREADS, 0, [&] {
       reduce512_kernel((const uint8_t*)digest.data(), out.data(), B);
     });
     wr(d + "/out", out);
+    return 0;
   }
+  // words (B, 64), two (B,) as int32 0/1 -> digest (B, 64) bytes or (22, B) limbs
+  auto words = rd(d + "/words", 64 * B), two32 = rd(d + "/two", B);
+  std::vector<uint8_t> two(two32.begin(), two32.end());
+  const bool fused = kind == "sha512_reduce";
+  std::vector<int32_t> out((fused ? 22 : 16) * B, -1);
+  emu_launch((B + SHA_LANES - 1) / SHA_LANES, SHA_THREADS, SHA_SMEM_BYTES, [&] {
+    if (fused)
+      sha512_reduce_kernel((const uint32_t*)words.data(), two.data(), out.data(), B, 1u);
+    else
+      sha512_blocks_kernel((const uint32_t*)words.data(), two.data(), (uint32_t*)out.data(), B, 1u);
+  });
+  wr(d + "/out", out);
   return 0;
 }
 """,
@@ -469,3 +482,42 @@ def test_reduce512_matches_plain(host_build, tmp_path, n):
     assert torch.equal(out, SC.reduce512_plain(torch.from_numpy(digest)))
     assert [sum(int(x) << (12 * i) for i, x in enumerate(out[:, j])) for j in range(n)] == [
         v % L for v in vals]
+
+
+@pytest.mark.parametrize("n", [1, 3, 33, 70])
+def test_sha512_reduce_matches_plain(host_build, tmp_path, n):
+    """The fused hash and reduction: one- and two-block lanes (the block
+    edge lengths first), the last lanes of 70 a block whose lanes are all
+    one-block (it stops after block 1), 33 and 70 ending in a partial
+    block; k equal to the plain composition and to Python's `% L` of
+    hashlib's digest. The Barrett step the kernel ends with is
+    `reduce512`'s: on the reduction's edge digests (0, L - 1, L, 2L,
+    2^512 - 1, just under multiples of L) in the first lanes of a
+    launch of the same width, it gives Python's `% L`."""
+    from cometbft_tpu_torch.ops import scalar as SC
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    rng = np.random.default_rng(90 + n)
+    lens = ([0, 111 - 64, 112 - 64, 175] + rng.integers(0, 176, n).tolist())[:n]
+    if n > 64:
+        lens[64:] = rng.integers(0, 48, n - 64).tolist()  # a block of one-block lanes
+    msgs = [rng.bytes(64 + ln) for ln in lens]
+    words, two = H.pad_messages(msgs)
+    assert n < 3 or (two.any() and not two.all())
+    out = run(host_build["sha512_kernels"], "sha512_reduce", n,
+              {"words": words.view(np.int32), "two": two.astype(np.int32)},
+              [("out", (22, n))], tmp_path)[0]
+    assert torch.equal(out, SC.sha512_reduce_plain(torch.from_numpy(words.view(np.int32)),
+                                                   torch.from_numpy(two)))
+    L = SC.L_INT
+    assert [sum(int(x) << (12 * i) for i, x in enumerate(out[:, j])) for j in range(n)] == [
+        int.from_bytes(hashlib.sha512(m).digest(), "little") % L for m in msgs]
+    top = (1 << 512) - 1
+    vals = [0, L - 1, L, 2 * L, top, top // L * L - 1, (2**200) * L - 1][:n]
+    vals += [int.from_bytes(hashlib.sha512(m).digest(), "little") for m in msgs[len(vals):]]
+    digest = np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8) for v in vals])
+    red = run(host_build["sha512_kernels"], "reduce512", n, {"digest": digest.view(np.int32)},
+              [("out", (22, n))], tmp_path)[0]
+    assert [sum(int(x) << (12 * i) for i, x in enumerate(red[:, j])) for j in range(n)] == [
+        v % L for v in vals]
+    assert torch.equal(red[:, 7:], out[:, 7:])  # the same digests past the edges
