@@ -30,68 +30,32 @@
 //
 // Design. A lane's 160 rounds are one dependent chain, so at most one warp
 // a 32 lanes can compress: 320 warps for a 10,240-lane commit, fewer than
-// the card's 528 warp schedulers, each warp alone on its scheduler. What
-// sets the time is then how fast that one warp issues its instructions.
-// This file holds the designs timed against each other on the H100
-// (tools/kernel_sweep.py --sha-sources, one wrapper file a variant that
-// sets these macros and includes this file):
-//   SHA_DESIGN 1 (kept): one thread a lane, schedule and compression
-//   together, in a 16-round unrolled body run in a loop (the rotating names
-//   line up every 8 rounds; the message schedule is computed in place over
-//   a 16-word ring, W[t + 16] right after round t uses W[t]): about 1,500
-//   instructions, where PR 7's fully unrolled lane is about 3,700 (59 KB of
-//   code).
-//   SHA_DESIGN 2: a block is two warps on 32 lanes. The schedule warp
-//   expands the message schedule of both blocks and writes W[t] + K[t] into
-//   shared memory (40 KB), one 16-round chunk ahead of the compressing
-//   warp; one __syncthreads a chunk hands over.
-//   SHA_MADD 1: the 64-bit additions as 32-bit multiply-adds by a one the
-//   compiler cannot see (a kernel argument), meant for the FMA pipe.
-//   SHA_CHAIN 1: e = (d + h + wk) + Sigma1 + Ch, a shorter dependent chain
-//   for one more addition a round.
-//   SHA_UNROLL 2: two chunks a loop iteration. SHA_CHUNK 8: an 8-round body
-//   that rotates the ring by 8 after each chunk.
-//   reduce512: one lane a thread, REDUCE_BLOCK threads a block; the words of
-//   L and mu are immediates (the Barrett loops are unrolled), so the three
-//   zero words of L drop out of q3 * L. sha512_reduce runs the same Barrett
-//   step on the lane's thread after the last round.
+// the card's 528 warp schedulers, each warp alone on its scheduler, with no
+// other warp to hide its stalls. What sets the time is how many integer
+// instructions that one warp issues a round and how densely. One thread a
+// lane, one warp a block. The rounds run as a 16-round unrolled body in a
+// loop (the rotating names line up every 8 rounds; the message schedule is
+// computed in place over a 16-word ring, W[t + 16] right after round t
+// reads W[t], so block 2's words load only when block 2 starts): about
+// 1,500 instructions, where a fully unrolled lane is about 3,700 (59 KB of
+// code) and ran 1.3x slower. K[t] is in __constant__ memory, a broadcast.
+// A schedule warp beside each compressing warp (W[t] + K[t] through shared
+// memory), 64-bit additions as multiply-adds on the FMA pipe, a shorter e
+// chain, 8-round bodies and two bodies an iteration all ran slower on the
+// H100 (PERF.md, PR 8).
+// reduce512 runs one lane a thread, 32-thread blocks; the words of L and mu
+// are immediates (the Barrett loops are unrolled), so the three zero words of
+// L drop out of q3 * L. sha512_reduce runs the same Barrett step on the
+// lane's thread after the last round.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef SHA_DESIGN
-#define SHA_DESIGN 1
-#endif
-#ifndef SHA_CHUNK
-#define SHA_CHUNK 16
-#endif
-#ifndef SHA_MADD
-#define SHA_MADD 0
-#endif
-#ifndef SHA_CHAIN
-#define SHA_CHAIN 0
-#endif
-#ifndef SHA_UNROLL
-#define SHA_UNROLL 1
-#endif
-
 namespace {
 
-constexpr int SHA_LANES = 32;  // lanes a block: one compressing warp
-#if SHA_DESIGN == 2
-constexpr int SHA_THREADS = 2 * SHA_LANES;  // and one schedule warp
-constexpr int SHA_SMEM_BYTES = 2 * 80 * SHA_LANES * 8;
-#else
-constexpr int SHA_THREADS = 32;
-constexpr int SHA_SMEM_BYTES = 0;
-#endif
-constexpr int CHUNK = SHA_CHUNK;         // rounds of the unrolled body
-constexpr int BLOCK_CHUNKS = 80 / CHUNK;
-#ifdef REDUCE_BLOCK
-constexpr int REDUCE_THREADS = REDUCE_BLOCK;
-#else
+constexpr int SHA_THREADS = 32;  // one lane a thread, one warp a block
+constexpr int CHUNK = 16;        // rounds of the unrolled body
 constexpr int REDUCE_THREADS = 32;
-#endif
 constexpr int NLIMBS12 = 22;
 
 __constant__ uint64_t K512[80] = {
@@ -154,46 +118,26 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t v) {
   return (v >> 24) | ((v >> 8) & 0xFF00u) | ((v << 8) & 0xFF0000u) | (v << 24);
 }
 
-// 64-bit addition; with SHA_MADD as two multiply-adds by `one` (1 at run time).
-struct Adder {
-  uint32_t one;
-  __device__ __forceinline__ uint64_t operator()(uint64_t a, uint64_t b) const {
-#if SHA_MADD
-    const uint64_t t = (uint64_t)(uint32_t)b * one + a;
-    return t + ((uint64_t)((uint32_t)(b >> 32) * one) << 32);
-#else
-    return a + b;
-#endif
-  }
-};
-
 // One round (FIPS 180-4, section 6.4.2) with wk = W[t] + K[t]; d and h take
 // the new e and a.
 __device__ __forceinline__ void sha_round(uint64_t a, uint64_t b, uint64_t c, uint64_t& d,
                                           uint64_t e, uint64_t f, uint64_t g, uint64_t& h,
-                                          uint64_t wk, Adder add) {
-#if SHA_CHAIN
-  // e = (d + h + wk) + Sigma1 + Ch: one three-term addition after Sigma1 and Ch
-  const uint64_t s1 = bsig1(e), c1 = ch(e, f, g), hk = add(h, wk);
-  const uint64_t t1 = add(add(hk, s1), c1);
-  d = add(add(add(d, hk), s1), c1);
-#else
-  const uint64_t t1 = add(add(add(h, wk), bsig1(e)), ch(e, f, g));
-  d = add(d, t1);
-#endif
-  h = add(add(t1, bsig0(a)), maj(a, b, c));
+                                          uint64_t wk) {
+  const uint64_t t1 = h + wk + bsig1(e) + ch(e, f, g);
+  d += t1;
+  h = t1 + bsig0(a) + maj(a, b, c);
 }
 
 // CHUNK rounds on the working variables s (a at s[0] on entry and on exit),
 // round i taking wk(i). At round i, a is s[(8 - i) & 7]: the names rotate
 // instead of the values.
 template <typename WK>
-__device__ __forceinline__ void rounds(uint64_t s[8], WK wk, Adder add) {
+__device__ __forceinline__ void rounds(uint64_t s[8], WK wk) {
 #pragma unroll
   for (int i = 0; i < CHUNK; ++i) {
     const int o = 16 - i;
     sha_round(s[o & 7], s[(o + 1) & 7], s[(o + 2) & 7], s[(o + 3) & 7], s[(o + 4) & 7],
-              s[(o + 5) & 7], s[(o + 6) & 7], s[(o + 7) & 7], wk(i), add);
+              s[(o + 5) & 7], s[(o + 6) & 7], s[(o + 7) & 7], wk(i));
   }
 }
 
@@ -208,85 +152,25 @@ __device__ __forceinline__ void load_block(const uint4* row, int blk, uint64_t w
 }
 
 // The schedule in place over a 16-word ring: w[i] holds W[t] and takes W[t + 16].
-__device__ __forceinline__ void schedule_step(uint64_t w[16], int i, Adder add) {
-  w[i] = add(add(w[i], ssig0(w[(i + 1) & 15])), add(w[(i + 9) & 15], ssig1(w[(i + 14) & 15])));
+__device__ __forceinline__ void schedule_step(uint64_t w[16], int i) {
+  w[i] = (w[i] + ssig0(w[(i + 1) & 15])) + (w[(i + 9) & 15] + ssig1(w[(i + 14) & 15]));
 }
 
-#if SHA_DESIGN == 2
-// The hash of the lane of this thread's column of the block: both warps call
-// it and reach every barrier; st holds the digest's words on the compressing
-// warp (threads 0..31). Rows past the batch repeat its last lane.
-__device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
-                                            const uint8_t* __restrict__ two_flags,
-                                            int64_t batch, uint64_t st[8], Adder add) {
-  extern __shared__ uint32_t smem[];
-  const int col = threadIdx.x % SHA_LANES;
-  const bool scheduler = threadIdx.x >= SHA_LANES;
-  int64_t lane = (int64_t)blockIdx.x * SHA_LANES + col;
-  lane = lane < batch ? lane : batch - 1;
-  const bool two = two_flags[lane] != 0;
-  const int chunks = __syncthreads_or(two) ? 2 * BLOCK_CHUNKS : BLOCK_CHUNKS;
-  uint64_t* wk_col = reinterpret_cast<uint64_t*>(smem) + col;  // W[t] + K[t] at t * SHA_LANES
-  const uint4* row = reinterpret_cast<const uint4*>(words + lane * 64);
-  uint64_t w[16], s[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) st[i] = s[i] = IV512[i];
-#pragma unroll 1
-  for (int c = 0; c <= chunks; ++c) {
-    if (scheduler) {
-      if (c < chunks) {  // chunk c of the schedule
-        const int sub = c % BLOCK_CHUNKS;
-        if (sub == 0) {
-          load_block(row, c / BLOCK_CHUNKS, w);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) schedule_step(w, i, add);
-        }
-        uint64_t* dst = wk_col + c * CHUNK * SHA_LANES;
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) dst[i * SHA_LANES] = add(w[i], K512[sub * CHUNK + i]);
-      }
-    } else if (c > 0) {  // rounds of chunk c - 1
-      const uint64_t* src = wk_col + (c - 1) * CHUNK * SHA_LANES;
-      rounds(s, [&](int i) { return src[i * SHA_LANES]; }, add);
-      if (c % BLOCK_CHUNKS == 0) {  // the end of a block
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const uint64_t v = add(st[i], s[i]);
-          if (c == BLOCK_CHUNKS || two) st[i] = v;
-          s[i] = v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-#else
 // CHUNK rounds from round t0 on s with the message words in the ring w
 // (w[i] holds W[t0 + i]); with kSchedule, w[i] then takes W[t0 + i + 16].
-// An 8-round chunk rotates the ring by 8 after its rounds, so the next
-// chunk's words are again at w[0..7].
 template <bool kSchedule>
-__device__ __forceinline__ void chunk(uint64_t s[8], uint64_t w[16], int t0, Adder add) {
+__device__ __forceinline__ void chunk(uint64_t s[8], uint64_t w[16], int t0) {
   rounds(s, [&](int i) {
-    const uint64_t wk = add(w[i], K512[t0 + i]);
-    if (kSchedule) schedule_step(w, i, add);
+    const uint64_t wk = w[i] + K512[t0 + i];
+    if (kSchedule) schedule_step(w, i);
     return wk;
-  }, add);
-  if (CHUNK == 8) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint64_t v = w[i];
-      w[i] = w[i + 8];
-      w[i + 8] = v;
-    }
-  }
+  });
 }
 
 // The hash of this thread's lane, schedule and rounds on the one thread.
 __device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
                                             const uint8_t* __restrict__ two_flags,
-                                            int64_t lane, uint64_t st[8], Adder add) {
+                                            int64_t lane, uint64_t st[8]) {
   const uint4* row = reinterpret_cast<const uint4*>(words + lane * 64);
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = IV512[i];
@@ -297,19 +181,13 @@ __device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
     load_block(row, blk, w);
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] = st[i];
-#if SHA_UNROLL == 2
-#pragma unroll 2
-#else
 #pragma unroll 1
-#endif
-    for (int t = 0; t < 64; t += CHUNK) chunk<true>(s, w, t, add);
-#pragma unroll 1
-    for (int t = 64; t < 80; t += CHUNK) chunk<false>(s, w, t, add);
+    for (int t = 0; t < 64; t += CHUNK) chunk<true>(s, w, t);
+    chunk<false>(s, w, 64);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) st[i] = add(st[i], s[i]);
+    for (int i = 0; i < 8; ++i) st[i] += s[i];
   }
 }
-#endif
 
 // x (16 little-endian 32-bit words of a 512-bit value) mod L -> (22, batch)
 // 12-bit limbs of lane `lane`, by Barrett in base b = 2^32.
@@ -392,24 +270,13 @@ __device__ __forceinline__ void digest_words(const uint64_t st[8], uint32_t x[16
   }
 }
 
-#if SHA_DESIGN == 2
-#define SHA_LANE_OF_THREAD()                                   \
-  uint64_t st[8];                                              \
-  sha512_lane(words, two, batch, st, Adder{one});              \
-  const int64_t lane = (int64_t)blockIdx.x * SHA_LANES + threadIdx.x; \
-  if (threadIdx.x >= SHA_LANES || lane >= batch) return;
-#else
-#define SHA_LANE_OF_THREAD()                                   \
-  const int64_t lane = (int64_t)blockIdx.x * SHA_LANES + threadIdx.x; \
-  if (lane >= batch) return;                                   \
-  uint64_t st[8];                                              \
-  sha512_lane(words, two, lane, st, Adder{one});
-#endif
-
 __global__ void __launch_bounds__(SHA_THREADS)
     sha512_blocks_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
-                         uint32_t* __restrict__ out, int64_t batch, uint32_t one) {
-  SHA_LANE_OF_THREAD()
+                         uint32_t* __restrict__ out, int64_t batch) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= batch) return;
+  uint64_t st[8];
+  sha512_lane(words, two, lane, st);
   uint32_t x[16];
   digest_words(st, x);
   uint4* o = reinterpret_cast<uint4*>(out + lane * 16);
@@ -419,8 +286,11 @@ __global__ void __launch_bounds__(SHA_THREADS)
 
 __global__ void __launch_bounds__(SHA_THREADS)
     sha512_reduce_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
-                         int32_t* __restrict__ out, int64_t batch, uint32_t one) {
-  SHA_LANE_OF_THREAD()
+                         int32_t* __restrict__ out, int64_t batch) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= batch) return;
+  uint64_t st[8];
+  sha512_lane(words, two, lane, st);
   uint32_t x[16];
   digest_words(st, x);
   reduce_store(x, out, lane, batch);
@@ -444,25 +314,25 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
   reduce_store(x, out, lane, batch);
 }
 
-unsigned blocks_for(int64_t batch, int lanes) {
-  return (unsigned)((batch + lanes - 1) / lanes);
+unsigned blocks_for(int64_t batch, int threads) {
+  return (unsigned)((batch + threads - 1) / threads);
 }
 
 }  // namespace
 
 extern "C" int sha512_blocks_launch(const void* words, const void* two, void* out, int64_t batch,
                                     void* stream) {
-  sha512_blocks_kernel<<<blocks_for(batch, SHA_LANES), SHA_THREADS, SHA_SMEM_BYTES,
+  sha512_blocks_kernel<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0,
                          (cudaStream_t)stream>>>((const uint32_t*)words, (const uint8_t*)two,
-                                                 (uint32_t*)out, batch, 1u);
+                                                 (uint32_t*)out, batch);
   return (int)cudaGetLastError();
 }
 
 extern "C" int sha512_reduce_launch(const void* words, const void* two, void* out, int64_t batch,
                                     void* stream) {
-  sha512_reduce_kernel<<<blocks_for(batch, SHA_LANES), SHA_THREADS, SHA_SMEM_BYTES,
+  sha512_reduce_kernel<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0,
                          (cudaStream_t)stream>>>((const uint32_t*)words, (const uint8_t*)two,
-                                                 (int32_t*)out, batch, 1u);
+                                                 (int32_t*)out, batch);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,8 @@ shuffles, layouts, table columns and signed-digit handling), `decompress`,
 the field products, the RLC route's `accum_weight` (four threads a lane),
 the RLC tail's `region_sum` (one block per region, partial sums in shared
 memory) and `window_combine` (one lane on four threads), and the
-device-SHA routes' `sha512_blocks` and `reduce512` (one lane a thread) on
-small inputs, which must agree with the plain PyTorch versions (after
+device-SHA routes' `sha512_blocks`, `reduce512` and the fused
+`sha512_reduce` (one lane a thread) on small inputs, which must agree with the plain PyTorch versions (after
 `freeze` for field elements; digests and scalars bit for bit). Partial
 thread groups and partial blocks are in every ladder and `accum_weight`
 case. Skips without g++.
@@ -88,14 +88,6 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width) {
   const uint32_t r = g_slots[(threadIdx.x & ~(unsigned)(width - 1)) + (src & (width - 1))];
   __syncthreads();
   return r;
-}
-inline int __syncthreads_or(int pred) {
-  g_slots[threadIdx.x] = pred != 0;
-  __syncthreads();
-  int any = 0;
-  for (unsigned t = 0; t < blockDim.x; ++t) any |= g_slots[t] != 0;
-  __syncthreads();
-  return any;
 }
 inline void emu_entry() {
   (*g_body)();
@@ -234,11 +226,11 @@ int main(int argc, char** argv) {
   std::vector<uint8_t> two(two32.begin(), two32.end());
   const bool fused = kind == "sha512_reduce";
   std::vector<int32_t> out((fused ? 22 : 16) * B, -1);
-  emu_launch((B + SHA_LANES - 1) / SHA_LANES, SHA_THREADS, SHA_SMEM_BYTES, [&] {
+  emu_launch((B + SHA_THREADS - 1) / SHA_THREADS, SHA_THREADS, 0, [&] {
     if (fused)
-      sha512_reduce_kernel((const uint32_t*)words.data(), two.data(), out.data(), B, 1u);
+      sha512_reduce_kernel((const uint32_t*)words.data(), two.data(), out.data(), B);
     else
-      sha512_blocks_kernel((const uint32_t*)words.data(), two.data(), (uint32_t*)out.data(), B, 1u);
+      sha512_blocks_kernel((const uint32_t*)words.data(), two.data(), (uint32_t*)out.data(), B);
   });
   wr(d + "/out", out);
   return 0;
@@ -487,9 +479,8 @@ def test_reduce512_matches_plain(host_build, tmp_path, n):
 @pytest.mark.parametrize("n", [1, 3, 33, 70])
 def test_sha512_reduce_matches_plain(host_build, tmp_path, n):
     """The fused hash and reduction: one- and two-block lanes (the block
-    edge lengths first), the last lanes of 70 a block whose lanes are all
-    one-block (it stops after block 1), 33 and 70 ending in a partial
-    block; k equal to the plain composition and to Python's `% L` of
+    edge lengths first), the last lanes of 70 a warp whose lanes are all
+    one-block, 33 and 70 ending in a partial block; k equal to the plain composition and to Python's `% L` of
     hashlib's digest. The Barrett step the kernel ends with is
     `reduce512`'s: on the reduction's edge digests (0, L - 1, L, 2L,
     2^512 - 1, just under multiples of L) in the first lanes of a
