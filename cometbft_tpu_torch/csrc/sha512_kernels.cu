@@ -36,13 +36,15 @@
 // lane, one warp a block. The rounds run as a 16-round unrolled body in a
 // loop (the rotating names line up every 8 rounds; the message schedule is
 // computed in place over a 16-word ring, W[t + 16] right after round t
-// reads W[t], so block 2's words load only when block 2 starts): about
-// 1,500 instructions, where a fully unrolled lane is about 3,700 (59 KB of
-// code) and ran 1.3x slower. K[t] is in __constant__ memory, a broadcast.
-// A schedule warp beside each compressing warp (W[t] + K[t] through shared
-// memory), 64-bit additions as multiply-adds on the FMA pipe, a shorter e
-// chain, 8-round bodies and two bodies an iteration all ran slower on the
-// H100 (PERF.md, PR 8).
+// reads W[t]): about 1,500 instructions, where a fully unrolled lane is
+// about 3,700 (59 KB of code) and ran 1.3x slower. Both blocks' 16-byte
+// loads issue at the start, block 2's words kept in registers, so its
+// loads are not waited for between the blocks. K[t] is in __constant__
+// memory, a broadcast. A schedule warp beside each compressing warp
+// (W[t] + K[t] through shared memory, with or without placing the
+// compressing warps on distinct schedulers), 64-bit additions as
+// multiply-adds on the FMA pipe, a shorter e chain, 8-round bodies and two
+// bodies an iteration all ran slower on the H100 (PERF.md, PR 8).
 // reduce512 runs one lane a thread, 32-thread blocks; the words of L and mu
 // are immediates (the Barrett loops are unrolled), so the three zero words of
 // L drop out of q3 * L. sha512_reduce runs the same Barrett step on the
@@ -51,26 +53,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef SHA_DESIGN
-#define SHA_DESIGN 1
-#endif
-#ifndef SHA_PREFETCH
-#define SHA_PREFETCH 1
-#endif
-#ifndef SHA_ROLE_BY_SLOT
-#define SHA_ROLE_BY_SLOT 1
-#endif
-
 namespace {
 
-constexpr int SHA_LANES = 32;  // lanes a block
-#if SHA_DESIGN != 2
 constexpr int SHA_THREADS = 32;  // one lane a thread, one warp a block
-constexpr int SHA_SMEM_BYTES = 0;
-#else
-constexpr int SHA_THREADS = 64;  // a compressing warp and a schedule warp
-constexpr int SHA_SMEM_BYTES = 2 * 80 * SHA_LANES * 8;
-#endif
 constexpr int CHUNK = 16;        // rounds of the unrolled body
 constexpr int REDUCE_THREADS = 32;
 constexpr int NLIMBS12 = 22;
@@ -184,97 +169,6 @@ __device__ __forceinline__ void chunk(uint64_t s[8], uint64_t w[16], int t0) {
   });
 }
 
-#if SHA_DESIGN == 2
-// The warp's slot on its SM (%warpid), whose value mod 4 is its warp scheduler.
-// The host twin (the CPU test's compile) places each block's warps on
-// consecutive slots of one SM.
-__device__ __forceinline__ unsigned warp_slot() {
-#ifdef __CUDA_ARCH__
-  unsigned w;
-  asm volatile("mov.u32 %0, %%warpid;" : "=r"(w));
-  return w;
-#else
-  return blockIdx.x * (SHA_THREADS / 32) + threadIdx.x / 32;
-#endif
-}
-
-// The hash of the lane of this thread's column: both warps of the block
-// call it and reach every barrier. Warp `compressor` (returned) runs the
-// rounds, the other the schedule one 16-round chunk ahead through shared
-// memory; st holds the digest's words on the compressing warp. Rows past
-// the batch repeat its last lane.
-__device__ __forceinline__ int sha512_pair(const uint32_t* __restrict__ words,
-                                           const uint8_t* __restrict__ two_flags,
-                                           int64_t batch, uint64_t st[8]) {
-  extern __shared__ uint32_t smem[];
-  const int col = threadIdx.x % SHA_LANES;
-  int64_t lane = (int64_t)blockIdx.x * SHA_LANES + col;
-  lane = lane < batch ? lane : batch - 1;
-  const bool two = two_flags[lane] != 0;
-  const int chunks = __syncthreads_or(two) ? 10 : 5;
-#if SHA_ROLE_BY_SLOT
-  // a block's warps hold slots 2k and 2k + 1; warp (k / 2) % 2 compresses, so
-  // the compressing warps of blocks k = 0, 1, 2, 3 sit on schedulers 0, 2, 1, 3
-  const int compressor = __syncthreads_or(threadIdx.x == 0 && ((warp_slot() >> 2) & 1));
-#else
-  const int compressor = 0;
-#endif
-  const bool scheduler = (int)(threadIdx.x / 32) != compressor;
-  uint64_t* wk_col = reinterpret_cast<uint64_t*>(smem) + col;  // W[t] + K[t] at t * SHA_LANES
-  const uint4* row = reinterpret_cast<const uint4*>(words + lane * 64);
-  uint64_t w[16], s[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) st[i] = s[i] = IV512[i];
-#if SHA_PREFETCH
-  uint4 cur[8], nxt[8];
-  if (scheduler) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      cur[q] = row[q];
-      nxt[q] = row[8 + q];
-    }
-  }
-#endif
-#pragma unroll 1
-  for (int c = 0; c <= chunks; ++c) {
-    if (scheduler) {
-      if (c < chunks) {  // chunk c of the schedule
-        const int sub = c % 5;
-        if (sub == 0) {
-#if SHA_PREFETCH
-          block_words(c == 0 ? cur : nxt, w);
-#else
-          uint4 v8[8];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) v8[q] = row[(c / 5) * 8 + q];
-          block_words(v8, w);
-#endif
-        } else {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) schedule_step(w, i);
-        }
-        uint64_t* dst = wk_col + c * CHUNK * SHA_LANES;
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) dst[i * SHA_LANES] = w[i] + K512[sub * CHUNK + i];
-      }
-    } else if (c > 0) {  // rounds of chunk c - 1
-      const uint64_t* src = wk_col + (c - 1) * CHUNK * SHA_LANES;
-      rounds(s, [&](int i) { return src[i * SHA_LANES]; });
-      if (c % 5 == 0) {  // the end of a block
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const uint64_t v = st[i] + s[i];
-          if (c == 5 || two) st[i] = v;
-          s[i] = v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  return compressor;
-}
-#endif
-
 // The hash of this thread's lane, schedule and rounds on the one thread.
 __device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
                                             const uint8_t* __restrict__ two_flags,
@@ -282,28 +176,19 @@ __device__ __forceinline__ void sha512_lane(const uint32_t* __restrict__ words,
   const uint4* row = reinterpret_cast<const uint4*>(words + lane * 64);
   uint4 cur[8], nxt[8];  // both blocks' loads issued at once, block 2's kept in registers
 #pragma unroll
-  for (int q = 0; q < 8; ++q) cur[q] = row[q];
-#if SHA_PREFETCH
-#pragma unroll
-  for (int q = 0; q < 8; ++q) nxt[q] = row[8 + q];
-#endif
+  for (int q = 0; q < 8; ++q) {
+    cur[q] = row[q];
+    nxt[q] = row[8 + q];
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) st[i] = IV512[i];
   const int nblocks = two_flags[lane] ? 2 : 1;
 #pragma unroll 1
   for (int blk = 0; blk < nblocks; ++blk) {
     uint64_t w[16], s[8];
-#if !SHA_PREFETCH
-    if (blk) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) cur[q] = row[8 + q];
-    }
-#endif
     block_words(cur, w);
-#if SHA_PREFETCH
 #pragma unroll
     for (int q = 0; q < 8; ++q) cur[q] = nxt[q];
-#endif
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] = st[i];
 #pragma unroll 1
@@ -398,16 +283,10 @@ __device__ __forceinline__ void digest_words(const uint64_t st[8], uint32_t x[16
 __global__ void __launch_bounds__(SHA_THREADS)
     sha512_blocks_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
                          uint32_t* __restrict__ out, int64_t batch) {
-  uint64_t st[8];
-#if SHA_DESIGN == 2
-  const int compressor = sha512_pair(words, two, batch, st);
-  const int64_t lane = (int64_t)blockIdx.x * SHA_LANES + threadIdx.x % SHA_LANES;
-  if ((int)(threadIdx.x / 32) != compressor || lane >= batch) return;
-#else
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= batch) return;
+  uint64_t st[8];
   sha512_lane(words, two, lane, st);
-#endif
   uint32_t x[16];
   digest_words(st, x);
   uint4* o = reinterpret_cast<uint4*>(out + lane * 16);
@@ -418,16 +297,10 @@ __global__ void __launch_bounds__(SHA_THREADS)
 __global__ void __launch_bounds__(SHA_THREADS)
     sha512_reduce_kernel(const uint32_t* __restrict__ words, const uint8_t* __restrict__ two,
                          int32_t* __restrict__ out, int64_t batch) {
-  uint64_t st[8];
-#if SHA_DESIGN == 2
-  const int compressor = sha512_pair(words, two, batch, st);
-  const int64_t lane = (int64_t)blockIdx.x * SHA_LANES + threadIdx.x % SHA_LANES;
-  if ((int)(threadIdx.x / 32) != compressor || lane >= batch) return;
-#else
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= batch) return;
+  uint64_t st[8];
   sha512_lane(words, two, lane, st);
-#endif
   uint32_t x[16];
   digest_words(st, x);
   reduce_store(x, out, lane, batch);
@@ -459,7 +332,7 @@ unsigned blocks_for(int64_t batch, int threads) {
 
 extern "C" int sha512_blocks_launch(const void* words, const void* two, void* out, int64_t batch,
                                     void* stream) {
-  sha512_blocks_kernel<<<blocks_for(batch, SHA_LANES), SHA_THREADS, SHA_SMEM_BYTES,
+  sha512_blocks_kernel<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0,
                          (cudaStream_t)stream>>>((const uint32_t*)words, (const uint8_t*)two,
                                                  (uint32_t*)out, batch);
   return (int)cudaGetLastError();
@@ -467,7 +340,7 @@ extern "C" int sha512_blocks_launch(const void* words, const void* two, void* ou
 
 extern "C" int sha512_reduce_launch(const void* words, const void* two, void* out, int64_t batch,
                                     void* stream) {
-  sha512_reduce_kernel<<<blocks_for(batch, SHA_LANES), SHA_THREADS, SHA_SMEM_BYTES,
+  sha512_reduce_kernel<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0,
                          (cudaStream_t)stream>>>((const uint32_t*)words, (const uint8_t*)two,
                                                  (int32_t*)out, batch);
   return (int)cudaGetLastError();

@@ -89,14 +89,6 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width) {
   __syncthreads();
   return r;
 }
-inline int __syncthreads_or(int pred) {
-  g_slots[threadIdx.x] = pred != 0;
-  __syncthreads();
-  int any = 0;
-  for (unsigned t = 0; t < blockDim.x; ++t) any |= g_slots[t] != 0;
-  __syncthreads();
-  return any;
-}
 inline void emu_entry() {
   (*g_body)();
   g_done[g_cur] = 1;
@@ -234,7 +226,7 @@ int main(int argc, char** argv) {
   std::vector<uint8_t> two(two32.begin(), two32.end());
   const bool fused = kind == "sha512_reduce";
   std::vector<int32_t> out((fused ? 22 : 16) * B, -1);
-  emu_launch((B + SHA_LANES - 1) / SHA_LANES, SHA_THREADS, SHA_SMEM_BYTES, [&] {
+  emu_launch((B + SHA_THREADS - 1) / SHA_THREADS, SHA_THREADS, 0, [&] {
     if (fused)
       sha512_reduce_kernel((const uint32_t*)words.data(), two.data(), out.data(), B);
     else
