@@ -76,7 +76,11 @@ and never prints its last line):
      `decompress` and `ladder_sub_mul8` once or more a commit;
    - the structured-wire (delta) route, pinned through its seam
      (`crypto.ed25519._delta_beats_prehashed` True): the same 16 commits
-     and the bad-lane commit; the same kernels, the same counts.
+     and the bad-lane commit; the same kernels, the same counts;
+   - the challenge through the ops-level entry points of the hash and the
+     reduction (`ops.sha512.sha512_digest`, then `ops.scalar.reduce512`)
+     on one commit's packed words: k equal to `sha512_reduce`'s, one
+     `sha512_blocks` and one `reduce512` launch.
    The ladder and RLC legs pin the delta seam False. Every commit of the
    phase has more than NATIVE_MAX signatures, so none takes the native
    route. A stage split of one warm commit of each route (host pack,
@@ -491,7 +495,8 @@ def parent_kernels(path, words, two, digest, red_in, limbs, kern) -> None:
     """Build `path` (an earlier `sha512_kernels.cu`, same launch signatures)
     into build/, check its `sha512_blocks` and `reduce512` give this
     checkout's outputs, and time each (events and alone) beside them:
-    kern[name]["parent"]."""
+    kern[name]["parent"]. Events time both builds through their bare ctypes
+    launchers (`this_ms`), without the package wrapper's checks."""
     import ctypes
 
     from cometbft_tpu_torch.ops import kernels as K
@@ -505,27 +510,32 @@ def parent_kernels(path, words, two, digest, red_in, limbs, kern) -> None:
     batch = words.shape[0]
     for name, args, want in (("sha512_blocks", (words, two), digest),
                              ("reduce512", (red_in,), limbs)):
-        f = getattr(lib, f"{name}_launch")
-        f.argtypes = K._SIGNATURES["sha512_kernels"][f"{name}_launch"]
-        f.restype = ctypes.c_int
-        out = torch.empty_like(want)
+        bare = {}
+        for who, f in (("parent", getattr(lib, f"{name}_launch")),
+                       ("this", K._fn("sha512_kernels", f"{name}_launch"))):
+            f.argtypes = K._SIGNATURES["sha512_kernels"][f"{name}_launch"]
+            f.restype = ctypes.c_int
+            out = torch.empty_like(want)
 
-        def go(f=f, args=args, out=out, name=name):
-            rc = f(*(a.data_ptr() for a in args), out.data_ptr(), batch, stream)
-            if rc != 0:
-                raise RuntimeError(f"parent {name} launch failed: cudaError {rc}")
+            def go(f=f, args=args, out=out, who=who):
+                rc = f(*(a.data_ptr() for a in args), out.data_ptr(), batch, stream)
+                if rc != 0:
+                    raise RuntimeError(f"{who} {name} launch failed: cudaError {rc}")
 
-        go()
-        torch.cuda.synchronize()
-        if not torch.equal(out, want):
-            raise AssertionError(f"the parent's {name} disagrees with this checkout's")
+            go()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"the {who} build's {name} disagrees with the wrapper's")
+            bare[who] = go
         reps = 50 if name == "sha512_blocks" else 100
-        kern[name]["parent"] = {"source": str(path), "ms": cuda_ms(go, reps),
-                                "device_only_ms": kernel_device_ms(go, name, reps),
+        kern[name]["parent"] = {"source": str(path), "ms": cuda_ms(bare["parent"], reps),
+                                "this_ms": cuda_ms(bare["this"], reps),
+                                "device_only_ms": kernel_device_ms(bare["parent"], name, reps),
                                 **K.ptxas_usage(log_text, f"{name}_kernel")}
-        log(f"parent {name} ({path}): kernel {kern[name]['parent']['ms']:.4f} ms (device alone "
-            f"{kern[name]['parent']['device_only_ms']:.4f} ms) against this checkout's "
-            f"{kern[name]['ms']:.4f} ({kern[name]['device_only_ms']:.4f}); same outputs")
+        par = kern[name]["parent"]
+        log(f"parent {name} ({path}): bare launches {par['ms']:.4f} ms against this checkout's "
+            f"{par['this_ms']:.4f} by events; device alone {par['device_only_ms']:.4f} against "
+            f"{kern[name]['device_only_ms']:.4f} ms; same outputs")
 
 
 def check_challenge_launches(route: str, counts: dict, commits: int) -> None:
@@ -534,6 +544,36 @@ def check_challenge_launches(route: str, counts: dict, commits: int) -> None:
     if counts["sha512_reduce"] != commits or any(counts[n] for n in SHA_STANDALONE):
         raise AssertionError(f"{route}: {commits} commits, so {commits} sha512_reduce launches "
                              f"and no {' or '.join(SHA_STANDALONE)}: {counts}")
+
+
+def ops_challenge_leg(dev, cols) -> dict:
+    """Phase 4 (e): one commit's challenge through the ops-level entry
+    points of the hash and the reduction (`ops.sha512.sha512_digest`, the
+    reference's `sha512_two_blocks` boundary in hashlib byte order, then
+    `ops.scalar.reduce512`), on the device-SHA route's packed words; k must
+    equal `sha512_reduce`'s, from one `sha512_blocks` and one `reduce512`
+    launch. Returns the launch counts of the leg."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.ops import scalar as SC
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    bv = E.Ed25519BatchVerifier(dev, device_sha=True)
+    bv.add_batch(*cols)
+    n = bv.count()
+    buf, fields, _ = bv._pack_device_sha(n, E._bucket(n))
+    t = E.unpack_fields(buf.to(dev), fields)
+    want = SC.sha512_reduce(t["words"], t["two"])
+    K.reset_launches()
+    k = SC.reduce512(H.sha512_digest(t["words"], t["two"]))
+    counts = dict(K.launches)
+    log(f"ops-level challenge launches: {counts}")
+    if not torch.equal(k, want):
+        raise AssertionError("reduce512(sha512_digest(...)) differs from sha512_reduce")
+    if counts["sha512_blocks"] != 1 or counts["reduce512"] != 1 or counts["sha512_reduce"]:
+        raise AssertionError(f"ops-level challenge: one launch each of {SHA_STANDALONE} "
+                             f"expected, got {counts}")
+    return counts
 
 
 def ptxas_per_kernel(K, report: dict) -> dict:
@@ -1221,13 +1261,15 @@ def main(argv=None) -> int:
             f"{r_sigs:.0f} sigs/s on {card}")
         sha_routes[route] = {"sigs_per_s": r_sigs, "pipeline_warm_s": r_warm_s,
                              "pipeline_cold_s": r_cold_s, "counts": r_counts, "commits": submits}
+    # (e) the standalone challenge kernels through their ops-level entry points
+    ops_counts = ops_challenge_leg(dev, cols[0])
     E._rlc_beats_ladder, E._delta_beats_prehashed = seam, delta_seam
     route_sigs = {"ladder": sigs_per_s, "rlc": rlc_sigs_per_s,
                   **{r: v["sigs_per_s"] for r, v in sha_routes.items()}}
     log("sigs/s, warm, same call: " + ", ".join(f"{r} {v:.0f}" for r, v in route_sigs.items())
         + f" [{card}]")
     by_route = {"ladder": counts, "rlc": rlc_counts,
-                **{r: v["counts"] for r, v in sha_routes.items()}}
+                **{r: v["counts"] for r, v in sha_routes.items()}, "ops": ops_counts}
     for name in SOURCES:
         kern[name]["launches"] = sum(c[name] for c in by_route.values())
         kern[name]["launches_by_route"] = {r: c[name] for r, c in by_route.items()}

@@ -44,7 +44,7 @@
 // (W[t] + K[t] through shared memory, with or without placing the
 // compressing warps on distinct schedulers), 64-bit additions as
 // multiply-adds on the FMA pipe, a shorter e chain, 8-round bodies and two
-// bodies an iteration all ran slower on the H100 (PERF.md, PR 8).
+// bodies an iteration all ran slower on the H100 (PERF.md, section 6).
 // reduce512 runs one lane a thread, 32-thread blocks; the words of L and mu
 // are immediates (the Barrett loops are unrolled), so the three zero words of
 // L drop out of q3 * L. sha512_reduce runs the same Barrett step on the

@@ -11,9 +11,9 @@ is hashed on the host for the prehashed functions, and on the device for
 (messages rebuilt on the device from a shared prefix and suffix and
 per-lane middle bytes): there one `sha512_reduce` kernel (the hash and
 the reduction mod L in one launch) runs before `decompress` and the
-ladder. Every function returns
-(bits, all_ok) with both left on the device: fetching the one all-ok
-scalar is the happy path, the bitmap crosses only when some lane failed.
+ladder. Every function returns (bits, all_ok) with both left on the
+device: fetching the one all-ok scalar is the happy path, the bitmap
+crosses only when some lane failed.
 """
 
 from __future__ import annotations

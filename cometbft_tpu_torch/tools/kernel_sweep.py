@@ -4,7 +4,7 @@
 loops.
 
     python3 -m cometbft_tpu_torch.tools.kernel_sweep [--sizes 2560,5120,10240,20480,40960]
-        [--accum-shapes 32x1,64x1,128x1,64x0,64x6] [--sha-sources a.cu,b.cu] [--sass]
+        [--accum-shapes 32x1,64x1,128x1,64x0,64x6] [--sass]
 
 For each batch size B: `ladder_sub_mul8` and `decompress` on random
 points and digits (seeded), mean milliseconds per launch by CUDA events
@@ -24,25 +24,13 @@ its resident threads an SM and waves follow from them; its output must
 equal the package build's. The builds are timed in turns, 3 rounds of
 20 launches, and the table prints each round's mean milliseconds.
 
-The challenge kernels at the device-SHA commit's shape (B = 10,240:
-10,000 vote-shaped two-block R||A||M lanes and 240 one- and two-block
-edge lanes, seeded): `sha512_blocks`, `reduce512` and `sha512_reduce`
-of the package's `csrc/sha512_kernels.cu` and of each source of
-`--sha-sources` (another version of that file, e.g. a parent commit's
-`git show <rev>:cometbft_tpu_torch/csrc/sha512_kernels.cu`, or a file
-that sets the source's macros and includes it). Each source is built
-with the package's flags, its outputs must equal the package build's
-(a source without `sha512_reduce_launch` is timed on the other two),
-and all are timed in turns, 3 rounds: mean milliseconds by CUDA events
-over back-to-back launches, and each kernel's device time alone from a
-profiler trace. An empty `--sizes` or `--accum-shapes` skips that sweep.
-
 `--sass` disassembles the package's ladder, `accum_weight`,
-`sha512_blocks` and `sha512_reduce` (`cuobjdump -sass`), and each
-`--sha-sources` build's `sha512_blocks`, and prints the opcode counts of
-each loop body (a backward branch and its target) and of the whole
-kernel. The last line is one JSON object with every number, the card's
-name and power limit. Needs one CUDA GPU and nvcc.
+`sha512_blocks` and `sha512_reduce` (`cuobjdump -sass`) and prints the
+opcode counts of each loop body (a backward branch and its target) and
+of the whole kernel. (To time another version of
+`csrc/sha512_kernels.cu` beside the package's, use `chip_smoke.py
+--parent-sha`.) The last line is one JSON object with every number, the
+card's name and power limit. Needs one CUDA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -132,7 +120,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="2560,5120,10240,20480,40960")
     ap.add_argument("--accum-shapes", default="32x1,64x1,128x1,64x0,64x6,64x8,128x3,128x4")
-    ap.add_argument("--sha-sources", default="")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -150,10 +137,10 @@ def main(argv=None) -> int:
     result = {"card": smi("name,power.limit"), "ptxas": [
         ln.strip() for ln in K.ptxas_report()["curve_kernels"].splitlines()
         if "registers" in ln or "spill" in ln]}
-    sizes = [int(x) for x in args.sizes.split(",") if x]
+    sizes = [int(x) for x in args.sizes.split(",")]
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    top = max(sizes, default=1)
+    top = max(sizes)
 
     def digits():
         return torch.from_numpy(rng.integers(-8, 8, (64, top), dtype=np.int32)).to(dev)
@@ -183,21 +170,14 @@ def main(argv=None) -> int:
         print(f"B={b}: ladder_sub_mul8 {result[f'ladder_sub_mul8_ms_B{b}']:.4f} ms, "
               f"decompress {result[f'decompress_ms_B{b}']:.4f} ms", flush=True)
     del a4, r4, sd, kd, encs, sign, y
-    if args.accum_shapes:
-        result["accum_weight"] = sweep_accum(K, args, rng, dev, ms)
-    result["sha"], sha_libs = sweep_sha(K, args, rng, dev, ms)
+    result["accum_weight"] = sweep_accum(K, args, rng, dev, ms)
     if args.sass:
         cuobjdump = Path(K._nvcc()).parent / "cuobjdump"
-        todo = [(K.build_dir() / "curve_kernels.so", "ladder_sub_mul8_kernel", "sass_ladder"),
-                (K.build_dir() / "msm_kernels.so", "accum_weight_kernel", "sass_accum_weight"),
-                (K.build_dir() / "sha512_kernels.so", "sha512_blocks_kernel",
-                 "sass_sha512_blocks"),
-                (K.build_dir() / "sha512_kernels.so", "sha512_reduce_kernel",
-                 "sass_sha512_reduce")]
-        todo += [(lib, "sha512_blocks_kernel", f"sass_sha512_blocks {label}")
-                 for label, lib in sha_libs.items()]
-        for lib, kernel, key in todo:
-            sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+        for lib, kernel, key in (("curve_kernels", "ladder_sub_mul8_kernel", "sass_ladder"),
+                                 ("msm_kernels", "accum_weight_kernel", "sass_accum_weight"),
+                                 ("sha512_kernels", "sha512_blocks_kernel", "sass_sha512_blocks"),
+                                 ("sha512_kernels", "sha512_reduce_kernel", "sass_sha512_reduce")):
+            sass = subprocess.run([str(cuobjdump), "-sass", str(K.build_dir() / f"{lib}.so")],
                                   capture_output=True, text=True, check=True).stdout
             result[key] = loop_histograms(sass, kernel)
             for name, h in result[key].items():
@@ -257,116 +237,6 @@ def sweep_accum(K, args, rng, dev, ms) -> dict:
               f"{row['resident_threads_per_sm']} | {row['waves']:.3f} | "
               + ", ".join(f"{t:.4f}" for t in row["ms"]), flush=True)
     return rows
-
-
-def sha_inputs(rng, batch: int):
-    """(words (B, 64) int32, two (B,) bool) of the device-SHA commit's shape:
-    10,000 vote-shaped R||A||M preimages (64 + 100 bytes, two blocks), then
-    preimages of 0, 111, 112, 175 and 239 bytes, then one-block lanes, the
-    last 8 with a second block of junk behind a one-block flag."""
-    import numpy as np
-
-    from cometbft_tpu_torch.ops import sha512 as H
-
-    votes = min(10_000, batch - 16)
-    pre = [rng.bytes(164) for _ in range(votes)]
-    pre += [rng.bytes(n) for n in (0, 111, 112, 175, 239)]
-    pre += [rng.bytes(104) for _ in range(batch - len(pre))]
-    words, two = H.pad_messages(pre)
-    words[batch - 8:, 32:] = rng.integers(0, 2**32, (8, 32), dtype=np.uint32)
-    return words.view(np.int32), two
-
-
-def device_alone_ms(fn, kernel: str, reps: int, attempts: int = 3) -> float:
-    """Mean device time of `kernel` in a profiler trace of `reps` calls; a
-    trace that lost more than one launch in ten is taken again (the
-    profiler drops launches now and then)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and f"{kernel}_kernel" in e.name]
-        if 10 * len(ev) >= 9 * reps:
-            return sum(e.device_time_total for e in ev) / len(ev) / 1e3
-    raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, expected {reps}")
-
-
-def sweep_sha(K, args, rng, dev, ms):
-    """The challenge kernels of the package and of each `--sha-sources`
-    build, checked against the package's and timed in turns; returns
-    ({label: row}, {label: library path})."""
-    import ctypes
-
-    import torch
-
-    batch = 10_240
-    words_np, two_np = sha_inputs(rng, batch)
-    words, two = torch.from_numpy(words_np).to(dev), torch.from_numpy(two_np).to(dev)
-    digest = K.sha512_blocks(words, two)
-    limbs = K.reduce512(digest)
-    fused = K.sha512_reduce(words, two)
-    if not torch.equal(fused, limbs):
-        raise AssertionError("sha512_reduce disagrees with reduce512(sha512_blocks)")
-    sources = {"package": K.CSRC / "sha512_kernels.cu"}
-    sources.update({Path(p).stem: Path(p).resolve() for p in args.sha_sources.split(",") if p})
-    out_dir = K.BUILD_ROOT / "sweep" / K.build_dir().name
-    K.compile_sources({f"sha_{label}": src for label, src in sources.items()}, out_dir)
-    stream = torch.cuda.current_stream().cuda_stream
-    rows, libs = {}, {}
-    for label in sources:
-        lib = ctypes.CDLL(str(out_dir / f"sha_{label}.so"))
-        libs[label] = out_dir / f"sha_{label}.so"
-        log = (out_dir / f"sha_{label}.ptxas.txt").read_text()
-        calls = {}
-        for name in ("sha512_blocks", "reduce512", "sha512_reduce"):
-            f = getattr(lib, f"{name}_launch", None)
-            if f is None:
-                continue
-            f.argtypes = K._SIGNATURES["sha512_kernels"][f"{name}_launch"]
-            f.restype = ctypes.c_int
-            if name == "reduce512":
-                dst, args_ = torch.empty_like(limbs), (digest.data_ptr(),)
-            else:
-                dst = torch.empty_like(digest if name == "sha512_blocks" else limbs)
-                args_ = (words.data_ptr(), two.data_ptr())
-
-            def go(f=f, args_=args_, dst=dst, name=name):
-                rc = f(*args_, dst.data_ptr(), batch, stream)
-                if rc != 0:
-                    raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-
-            dst.fill_(0)
-            go()
-            torch.cuda.synchronize()
-            want = {"sha512_blocks": digest, "reduce512": limbs, "sha512_reduce": fused}[name]
-            if not torch.equal(dst, want):
-                raise AssertionError(f"{name} of {label} disagrees with the package build")
-            calls[name] = go
-        rows[label] = {"calls": calls, "ms": {n: [] for n in calls},
-                       "alone_ms": {n: [] for n in calls},
-                       **{n: K.ptxas_usage(log, f"{n}_kernel") for n in calls}}
-    for _ in range(3):
-        for row in rows.values():
-            for name, go in row["calls"].items():
-                row["ms"][name].append(ms(go, 50))
-                row["alone_ms"][name].append(device_alone_ms(go, name, 50))
-    print(f"challenge kernels, B = {batch} ({int(two_np.sum())} two-block lanes): "
-          "source | kernel | registers | spill B | ms by events (3 rounds) | ms alone (3 rounds)")
-    for label, row in rows.items():
-        del row["calls"]
-        for name in row["ms"]:
-            u = row[name]
-            print(f"  {label} | {name} | {u.get('registers')} | {u.get('spill_bytes')} | "
-                  + ", ".join(f"{t:.4f}" for t in row["ms"][name]) + " | "
-                  + ", ".join(f"{t:.4f}" for t in row["alone_ms"][name]), flush=True)
-    return rows, libs
 
 
 if __name__ == "__main__":

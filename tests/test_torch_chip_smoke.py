@@ -72,3 +72,32 @@ def test_challenge_launch_check(counts, ok):
     else:
         with pytest.raises(AssertionError, match="34 sha512_reduce launches"):
             chip_smoke.check_challenge_launches("device_sha", counts, 34)
+
+
+def test_ops_challenge_leg_launches_each_standalone_kernel_once(monkeypatch):
+    """Phase 4 (e) on the CPU, the launchers replaced by counted plain
+    versions and the device test forced true: one commit's packed words
+    through `sha512_digest` then `reduce512` give `sha512_reduce`'s k from
+    one launch of each standalone kernel and none of the fused one."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.ops import scalar as SC
+    from cometbft_tpu_torch.ops import sha512 as H
+
+    def counted(name, fn):
+        def launch(*args):
+            K.launches[name] += 1
+            return fn(*args)
+        return launch
+
+    monkeypatch.setattr(K, "sha512_blocks", counted("sha512_blocks", H.sha512_digest_plain))
+    monkeypatch.setattr(K, "reduce512", counted("reduce512", SC.reduce512_plain))
+    monkeypatch.setattr(K, "sha512_reduce", counted("sha512_reduce", SC.sha512_reduce_plain))
+    rng = np.random.default_rng(4)
+    cols = chip_smoke.to_columns([(rng.bytes(32), rng.bytes(100), rng.bytes(64))
+                                  for _ in range(20)])
+    monkeypatch.setattr(F, "on_gpu", lambda t: True)
+    counts = chip_smoke.ops_challenge_leg(torch.device("cpu"), cols)
+    assert (counts["sha512_blocks"], counts["reduce512"], counts["sha512_reduce"]) == (1, 1, 0)

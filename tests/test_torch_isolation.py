@@ -134,6 +134,10 @@ def test_cuda_requests_without_a_library_raise(no_nvcc):
         K.reduce512(digest)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         SC.reduce512(digest)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.sha512_reduce(words, two)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        SC.sha512_reduce(words, two)  # the dispatching wrapper: no plain fallback either
     assert K.launches == before
 
 
@@ -156,6 +160,8 @@ def test_launchers_refuse_cpu_tensors():
         K.sha512_blocks(torch.zeros((4, 64), dtype=torch.int32), torch.zeros(4, dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.reduce512(torch.zeros((4, 64), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.sha512_reduce(torch.zeros((4, 64), dtype=torch.int32), torch.zeros(4, dtype=torch.bool))
 
 
 def test_launchers_check_dtype_and_shape():
@@ -191,6 +197,10 @@ def test_launchers_check_dtype_and_shape():
         K.sha512_blocks(words, fake_cuda_tensor((7,), torch.bool))
     with pytest.raises(ValueError, match="16-byte aligned"):
         K.sha512_blocks(types.SimpleNamespace(**{**vars(words), "data_ptr": lambda: 4}), two)
+    with pytest.raises(ValueError, match="expected bool"):
+        K.sha512_reduce(words, fake_cuda_tensor((8,)))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.sha512_reduce(types.SimpleNamespace(**{**vars(words), "data_ptr": lambda: 4}), two)
     with pytest.raises(ValueError, match="expected uint8"):
         K.reduce512(fake_cuda_tensor((8, 64)))
     with pytest.raises(ValueError, match="16-byte aligned"):

@@ -76,7 +76,7 @@ def test_msm_kernel_constants_match_the_layout():
     assert tuple(int(x) for x in body.split(",")) == M.REGION_DBL
     assert set(K.launches) == {"fe_mul", "fe_sq", "decompress", "ladder_sub_mul8",
                                "accum_weight", "region_sum", "window_combine",
-                               "sha512_blocks", "reduce512"}
+                               "sha512_blocks", "reduce512", "sha512_reduce"}
 
 
 def constant(src: str, name: str) -> int:
@@ -121,15 +121,17 @@ def test_launch_shapes_match_the_sources():
     smoke = (ROOT / "chip_smoke.py").read_text()
     check = int(re.search(r"^LADDER_CHECK_LANES = ([\d_]+)", smoke, re.M).group(1))
     assert re.search(r"^RAGGED_LANES = \(1, 3, 70, LADDER_CHECK_LANES\)", smoke, re.M)
-    # sha512_blocks and reduce512: one lane a thread
+    # sha512_blocks, sha512_reduce and reduce512: one lane a thread, one
+    # warp a block
     sha = (CSRC / "sha512_kernels.cu").read_text()
     sha_threads, reduce_threads = constant(sha, "SHA_THREADS"), constant(sha, "REDUCE_THREADS")
-    assert (sha_threads, reduce_threads) == (32, 64)
-    assert "__launch_bounds__(SHA_THREADS)" in sha and "__launch_bounds__(REDUCE_THREADS)" in sha
-    assert "<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0," in sha
+    assert (sha_threads, reduce_threads) == (32, 32)
+    assert sha.count("__launch_bounds__(SHA_THREADS)") == 2
+    assert "__launch_bounds__(REDUCE_THREADS)" in sha
+    assert sha.count("<<<blocks_for(batch, SHA_THREADS), SHA_THREADS, 0,") == 2
     assert "<<<blocks_for(batch, REDUCE_THREADS), REDUCE_THREADS, 0," in sha
     card = (ROOT / "tests" / "test_torch_kernels.py").read_text()
-    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 5
+    assert card.count('@pytest.mark.parametrize("n", [1, 3, 70, 1027])') == 6
     for n in (3, 70, check):
         assert n % (ladder // lane_threads) and n % decompress, n
         assert n % (accum // lane_threads), n
@@ -181,14 +183,15 @@ def test_ptxas_usage_reads_registers_and_spills():
 
 
 def constant_array(src: str, name: str) -> list[int]:
-    body = re.search(rf"__constant__ uint(?:32|64)_t {name}\[\d+\] = \{{([^}}]*)\}}", src).group(1)
+    body = re.search(rf"(?:__constant__|constexpr) uint(?:32|64)_t {name}\[\d+\] = \{{([^}}]*)\}}",
+                     src).group(1)
     return [int(x.strip().rstrip("ul"), 16) for x in body.split(",") if x.strip()]
 
 
 def test_sha512_kernel_constants_match_the_derived_ones():
     """K512 and IV512 of sha512_kernels.cu are the constants the plain
-    version derives from exact integer roots; L_W and MU_W are L and
-    floor(2^512 / L) in 32-bit words."""
+    version derives from exact integer roots; L_W and MU_W (immediates of
+    the Barrett step) are L and floor(2^512 / L) in 32-bit words."""
     from cometbft_tpu_torch.ops import scalar as SC
     from cometbft_tpu_torch.ops import sha512 as H
 
@@ -200,3 +203,11 @@ def test_sha512_kernel_constants_match_the_derived_ones():
     mu = (1 << 512) // SC.L_INT
     assert mu < 1 << 288 and constant_array(src, "MU_W") == words(mu, 9)
     assert constant(src, "NLIMBS12") == 22
+
+
+def test_fused_challenge_launcher_is_bound():
+    """`sha512_reduce_launch` (words, flags, out, batch, stream) is bound,
+    and the wrapper that launches it has a launch count."""
+    assert K._SIGNATURES["sha512_kernels"]["sha512_reduce_launch"] == [
+        K._P, K._P, K._P, K._I64, K._P]
+    assert "sha512_reduce" in K.launches
