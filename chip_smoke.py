@@ -101,13 +101,51 @@ and never prints its last line):
    its pick at 10,000 is logged beside the faster route of phase 4's
    pipelines, and its delta term's pick (delta or the prehashed ladder)
    beside the measured ladder and delta pipelines;
-6. one JSON line `{"kernels": [...]}` with each kernel's launches,
+6. the commit-verify consumers (`types/validation.py`, `light/verifier.py`,
+   `crypto/sched.py`) through their entry points, on data made on the
+   card by `utils/factories.py` from `--seed` (its fixed-base ladder must
+   launch `fe_mul` and `fe_sq`), each leg with the launch counts set to 0
+   just before it and read right after:
+   - `verify_commit` on a 10,000-validator commit of equal powers, default
+     dispatch: the valid commit returns, one with a bit flipped at index
+     BAD_INDEX raises ErrInvalidSignature naming it, one with more than a
+     third of the power absent raises ErrNotEnoughVotingPower; the route
+     (from the path counters) is logged, and `decompress` and
+     `ladder_sub_mul8` (or `accum_weight` if the dispatch took RLC) must
+     have launched; the bad commit again with the RLC seam pinned
+     (resubmitted while the layout declines it), whose blame rerun must
+     name the same index;
+   - `verify_commit_light` and `verify_commit_light_trusting` (trust 1/3)
+     on the same three commits, stopping at their threshold and with
+     `verify_all_signatures`: each outcome as `expected_outcome` says
+     (a light function that stops before BAD_INDEX accepts the bad
+     commit, as the reference does);
+   - `verify_commit` on a 150-validator commit: the native route, the same
+     three outcomes;
+   - `Commit.decode` of the 10,000-signature commit's encoding through the
+     native `commit_parse`: it re-encodes to the same bytes, and
+     `vote_sign_bytes_blob` equals `vote_sign_bytes` on every index;
+   - `light.verifier.verify_stream` over 64 headers signed by one
+     150-validator set (9,600 lanes, one batch): it passes, and with one
+     signature flipped it names the stream lane;
+   - the shared scheduler: two tenants' 5,000-signature verifiers
+     coalesce into one dispatch (one `ladder_sub_mul8` launch for the
+     valid pair), each tenant's bitmap equal to its own verifier's, a bad
+     lane failing only its tenant; then the same through `verify_commit`
+     under `verify_context` from two threads;
+   - timings: `verify_commit` at 150 and 10,000 (median of ROUTE_REPS,
+     warm, the commit's sign-bytes memos dropped before each), and the
+     same steps by hand split into sign bytes, adds, submit (with the
+     all-ok prefetch) and result; `Commit.decode` at 10,000; and
+     `verify_stream`'s headers/s and sigs/s; `results.json` key
+     `consumers`;
+7. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-7. the card's name and power limit, then the last line
+8. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -817,6 +855,510 @@ def host_engine_phase(dev, card, seed, commit, bad_items, expect, pipeline_sigs_
     return out
 
 
+# ---- phase 6: the commit-verify consumers
+
+CONSUMER_CHAIN = "smoke-chain"
+CONSUMER_HEIGHT = 12
+CONSUMER_POWER = 10
+BAD_INDEX = 7_777  # the flipped signature of the 10,000-validator commit
+SMALL_BAD_INDEX = 77  # and of the 150-validator commit
+STREAM_HEADERS = 64  # headers of the light-client stream, each signed by NATIVE_SIGS
+STREAM_BAD = (39, 17)  # (stream header, commit slot) of the stream's flipped signature
+TENANT_SIGS = 5_000  # each of the scheduler leg's two tenants
+TENANT_BAD_LANE = 4_321
+TRUST_PERIOD_S = 14 * 24 * 3600
+CONSUMER_FUNCS = ("verify_commit", "verify_commit_light", "verify_commit_light_trusting")
+
+
+def expected_outcome(fn: str, n: int, power: int, bad=None, absent: int = 0,
+                     trust=(1, 3), all_sigs: bool = False):
+    """What `fn` (a `types.validation` function) gives on an n-validator
+    commit of equal powers whose first `absent` slots are absent, every
+    other slot a COMMIT vote, and the signature at commit index `bad` (if
+    any) broken: None, or (exception class name, message), by the
+    reference's rules. verify_commit checks every signature; the light
+    functions stop once the signatures taken pass their threshold (2/3,
+    or `trust` of the same set) unless `all_sigs`. An invalid signature
+    is named by its index among the signatures taken, and raises before
+    the tally is compared."""
+    total = n * power
+    if fn == "verify_commit":
+        th, stop = total * 2 // 3, n
+    else:
+        num, den = (2, 3) if fn == "verify_commit_light" else trust
+        th = total * num // den
+        stop = n if all_sigs else min(n, absent + th // power + 1)
+    if bad is not None and absent <= bad < stop:
+        return ("ErrInvalidSignature", f"invalid signature at index {bad - absent}")
+    tally = (stop - absent) * power
+    if tally <= th:
+        return ("ErrNotEnoughVotingPower", f"tallied {tally} <= threshold {th}")
+    return None
+
+
+def outcome_of(call):
+    """None if call() returns, else (exception class name, message)."""
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 — the caller compares class and message
+        return type(e).__name__, str(e)
+    return None
+
+
+def check_outcome(what: str, call, want):
+    got = outcome_of(call)
+    if got != want:
+        raise AssertionError(f"{what}: got {got}, want {want}")
+    return got
+
+
+def stage_split_ms(stages, reps: int, prepare=None) -> dict:
+    """Median milliseconds of each stage of a chain of calls: `stages` is a
+    list of (name, fn), each fn taking the previous one's result (the first
+    gets None); `prepare()` runs untimed before each rep. One warm-up rep,
+    then `reps` timed ones. Returns {name: median ms, ..., "sum": median of
+    the reps' sums}."""
+    def one():
+        if prepare is not None:
+            prepare()
+        x, times = None, {}
+        for name, fn in stages:
+            t0 = time.perf_counter()
+            x = fn(x)
+            times[name] = (time.perf_counter() - t0) * 1e3
+        return times
+
+    one()
+    runs = [one() for _ in range(reps)]
+    out = {name: float(np.median([r[name] for r in runs])) for name, _ in stages}
+    out["sum"] = float(np.median([sum(r.values()) for r in runs]))
+    return out
+
+
+def verify_stages(chain_id, vals, commit, device):
+    """verify_commit's steps, by hand, as stages for `stage_split_ms`:
+    the sign bytes, the adds into the consumers' verifier, submit (with
+    the prefetch of the all-ok scalar) and result."""
+    from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+
+    def sign_bytes(_):
+        return [(vals.get_by_index(i).pub_key, commit.vote_sign_bytes(chain_id, i), cs.signature)
+                for i, cs in enumerate(commit.signatures) if not cs.is_absent()]
+
+    def adds(items):
+        bv = create_batch_verifier(items[0][0], device=device)
+        for pub, msg, sig in items:
+            bv.add(pub, msg, sig)
+        return bv
+
+    def submit(bv):
+        pending = bv.submit()
+        pending.prefetch()
+        return pending
+
+    def result(pending):
+        ok, _ = pending.result()
+        if not ok:
+            raise AssertionError("a valid commit did not verify in the stage split")
+        return pending
+
+    return [("sign_bytes", sign_bytes), ("adds", adds), ("submit", submit), ("result", result)]
+
+
+def build_header_stream(chain_id: str, signers, n_headers: int, t0_s: int, device, seed: int = 1):
+    """A trusted light block and `n_headers` consecutive ones after it, all
+    signed by one validator set made of `signers` (equal powers): heights
+    1..n_headers + 1, one second apart from t0_s, each header's
+    last_block_id the previous header's block id, every validator's COMMIT
+    vote one second after its header, the signatures of all headers made
+    in one `utils.factories.batch_sign` call on `device`. Returns (trusted,
+    stream)."""
+    from cometbft_tpu_torch.light import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types import (BlockID, BlockIDFlag, Commit, CommitSig, Header,
+                                          PartSetHeader, Timestamp)
+    from cometbft_tpu_torch.utils import factories as fx
+
+    vals = fx.make_validator_set(signers, [CONSUMER_POWER] * len(signers))
+    by_addr = {s.address(): s for s in signers}
+    vh = vals.hash()
+    prev, headers, commits = BlockID(), [], []
+    for k in range(n_headers + 1):
+        hdr = Header(chain_id=chain_id, height=k + 1, time=Timestamp(t0_s + k, 0),
+                     last_block_id=prev, validators_hash=vh, next_validators_hash=vh,
+                     proposer_address=vals.validators[k % len(vals)].address)
+        bid = BlockID(hdr.hash(), PartSetHeader(1, hashlib.sha256(b"parts %d" % k).digest()))
+        commits.append(Commit(k + 1, 0, bid, [
+            CommitSig(BlockIDFlag.COMMIT, v.address, Timestamp(t0_s + k + 1, i), b"")
+            for i, v in enumerate(vals.validators)]))
+        headers.append(hdr)
+        prev = bid
+    slots = [(c, i) for c in commits for i in range(len(vals))]
+    sigs = fx.batch_sign([by_addr[c.signatures[i].validator_address] for c, i in slots],
+                         [c.vote_sign_bytes(chain_id, i) for c, i in slots], seed=seed,
+                         device=device)
+    for (c, i), sig in zip(slots, sigs):
+        c.signatures[i].signature = sig
+    for c in commits:
+        c.invalidate_memos()
+    blocks = [LightBlock(SignedHeader(h, c), vals) for h, c in zip(headers, commits)]
+    return blocks[0], blocks[1:]
+
+
+def with_flipped_signature(commit, idx: int):
+    """A copy of `commit` whose signature at idx has its first bit flipped
+    (the other slots shared)."""
+    from cometbft_tpu_torch.types import Commit, CommitSig
+
+    sigs = list(commit.signatures)
+    cs = sigs[idx]
+    sigs[idx] = CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                          bytes([cs.signature[0] ^ 1]) + cs.signature[1:])
+    return Commit(commit.height, commit.round, commit.block_id, sigs)
+
+
+def with_absent_prefix(commit, absent: int):
+    """A copy of `commit` whose first `absent` slots are absent."""
+    from cometbft_tpu_torch.types import Commit, CommitSig
+
+    sigs = [CommitSig.absent() for _ in range(absent)] + list(commit.signatures[absent:])
+    return Commit(commit.height, commit.round, commit.block_id, sigs)
+
+
+def consumers_phase(dev, card, seed: int, kern: dict) -> dict:
+    """Phase 6: the commit-verify consumers on the card, through their
+    entry points, on data made by the port's `utils/factories.py` from
+    `seed`. Returns the `consumers` results (launch counts by leg under
+    "counts")."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.crypto import sched as S
+    from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+    from cometbft_tpu_torch.light import verifier as LV
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.types import Commit, Timestamp
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.utils import factories as fx
+    from cometbft_tpu_torch.utils.metrics import crypto_metrics
+
+    out, counts = {"card": card}, {}
+    chain, height, p = CONSUMER_CHAIN, CONSUMER_HEIGHT, CONSUMER_POWER
+
+    def paths_since(before):
+        now = crypto_metrics().path_selected_total.values()
+        return {k[0]: v - before.get(k, 0.0) for k, v in now.items()
+                if k[1] == "ed25519" and v != before.get(k, 0.0)}
+
+    def counted(leg, fn, need=()):
+        """fn() with every launch count set to 0 just before and read just
+        after; a kernel of `need` never launched is an error."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        before = crypto_metrics().path_selected_total.values()
+        res = fn()
+        torch.cuda.synchronize()
+        c = dict(K.launches)
+        counts[leg] = c
+        routes = paths_since(before)
+        launched = {k: v for k, v in c.items() if v}
+        log(f"consumers, {leg}: routes {routes}; launches {launched}")
+        for name in need:
+            if not c[name]:
+                raise AssertionError(f"consumers, {leg}: kernel {name} was never launched")
+        return res, routes
+
+    # the data, made by the factories on `dev` (the fixed-base ladder twin:
+    # fe_mul and fe_sq launches)
+    def make():
+        signers = fx.make_signers(COMMIT_SIGS, seed=seed, device=dev)
+        vals = fx.make_validator_set(signers, [p] * COMMIT_SIGS)
+        commit = fx.make_commit(chain, height, 0, bid, vals, {s.address(): s for s in signers},
+                                device=dev)
+        return signers, vals, commit
+
+    bid = fx.make_block_id(b"smoke block")
+    t0 = time.perf_counter()
+    (signers, vals, commit), _ = counted("factories", make, need=("fe_mul", "fe_sq"))
+    out["factories_10000_s"] = time.perf_counter() - t0
+    log(f"consumers: {COMMIT_SIGS} signers, validator set and commit made on {dev} in "
+        f"{out['factories_10000_s']:.2f} s")
+    bad = with_flipped_signature(commit, BAD_INDEX)
+    absent = COMMIT_SIGS // 3 + 1  # more than a third of the power absent
+    thin = with_absent_prefix(commit, absent)
+    # the dispatch model's terms for the buckets the legs use (10,240 was
+    # calibrated in phase 5), timed here so that no leg's counts hold them
+    for bucket in sorted({E._bucket(n) for n in (COMMIT_SIGS, COMMIT_SIGS // 3 + 1)}):
+        E.dispatch_model(bucket, bucket, dev)
+
+    def run(fn_name, c, **kw):
+        fn = getattr(V, fn_name)
+        if fn_name == "verify_commit_light_trusting":
+            return lambda: fn(chain, vals, c, device=dev, **kw)
+        return lambda: fn(chain, vals, bid, height, c, device=dev, **kw)
+
+    # 1. verify_commit at 10,000, default dispatch: valid, one bad bit, too few votes
+    def leg1():
+        for what, c, kw in (("valid", commit, {}), ("bad", bad, {"bad": BAD_INDEX}),
+                            ("absent", thin, {"absent": absent})):
+            check_outcome(f"verify_commit, {COMMIT_SIGS} validators, {what} commit",
+                          run("verify_commit", c),
+                          expected_outcome("verify_commit", COMMIT_SIGS, p, **kw))
+
+    _, routes = counted("verify_commit_10000", leg1)
+    need = ("accum_weight",) if "rlc" in routes else ("decompress", "ladder_sub_mul8")
+    for name in need:
+        if not counts["verify_commit_10000"][name]:
+            raise AssertionError(f"verify_commit at {COMMIT_SIGS}: {name} never launched "
+                                 f"(routes {routes})")
+    out["verify_commit_10000_routes"] = routes
+    log(f"verify_commit, {COMMIT_SIGS} validators: valid commit returns, bit flipped at "
+        f"{BAD_INDEX} named, {absent} absent -> not enough power [{card}]")
+
+    # the bad commit again with the RLC seam pinned: the blame rerun names it
+    seam = E._rlc_beats_ladder
+    E._rlc_beats_ladder = lambda n, b, device: True
+    try:
+        for attempt in range(1, 6):
+            _, routes = counted("verify_commit_rlc", lambda: check_outcome(
+                "verify_commit, RLC pinned, bad commit", run("verify_commit", bad),
+                expected_outcome("verify_commit", COMMIT_SIGS, p, bad=BAD_INDEX)))
+            if counts["verify_commit_rlc"]["accum_weight"]:
+                break
+            log(f"consumers: the RLC layout declined the bad commit (submit {attempt}); "
+                "the ladder named the index")
+        else:
+            raise AssertionError("the RLC layout declined the bad commit 5 times in a row")
+    finally:
+        E._rlc_beats_ladder = seam
+    if counts["verify_commit_rlc"]["ladder_sub_mul8"] < 2:
+        raise AssertionError("RLC pinned: no blame rerun on the ladder after the tail")
+    out["rlc_submits"] = attempt
+    log(f"verify_commit, RLC pinned: all-ok false, the blame rerun names index {BAD_INDEX} "
+        f"({attempt} submit(s)) [{card}]")
+
+    # 2. the light functions on the same commits
+    def leg2():
+        for fn_name in CONSUMER_FUNCS[1:]:
+            for all_sigs in (False, True):
+                for what, c, kw in (("valid", commit, {}), ("bad", bad, {"bad": BAD_INDEX}),
+                                    ("absent", thin, {"absent": absent})):
+                    extra = {"verify_all_signatures": True} if all_sigs else {}
+                    got = check_outcome(
+                        f"{fn_name} ({'all signatures' if all_sigs else 'stops at threshold'}),"
+                        f" {what} commit", run(fn_name, c, **extra),
+                        expected_outcome(fn_name, COMMIT_SIGS, p, all_sigs=all_sigs, **kw))
+                    log(f"  {fn_name}, all_sigs={all_sigs}, {what}: {got}")
+
+    counted("verify_commit_light", leg2, need=("decompress", "ladder_sub_mul8"))
+
+    # 3. a 150-validator commit: the native route
+    small_signers = fx.make_signers(NATIVE_SIGS, seed=seed + 1, device=dev)
+    small_vals = fx.make_validator_set(small_signers, [p] * NATIVE_SIGS)
+    small = fx.make_commit(chain, height, 0, bid, small_vals,
+                           {s.address(): s for s in small_signers}, device=dev)
+    small_absent = NATIVE_SIGS // 3 + 1
+
+    def leg3():
+        for what, c, kw in (("valid", small, {}),
+                            ("bad", with_flipped_signature(small, SMALL_BAD_INDEX),
+                             {"bad": SMALL_BAD_INDEX}),
+                            ("absent", with_absent_prefix(small, small_absent),
+                             {"absent": small_absent})):
+            check_outcome(f"verify_commit, {NATIVE_SIGS} validators, {what} commit",
+                          lambda: V.verify_commit(chain, small_vals, bid, height, c, device=dev),
+                          expected_outcome("verify_commit", NATIVE_SIGS, p, **kw))
+
+    _, routes = counted("verify_commit_150", leg3)
+    if set(routes) != {"native", "batch"}:
+        raise AssertionError(f"the {NATIVE_SIGS}-validator commit took {routes}, not native")
+    log(f"verify_commit, {NATIVE_SIGS} validators: native route; valid, index "
+        f"{SMALL_BAD_INDEX} named, too few votes refused [{card}]")
+
+    # 4. Commit.decode of the 10,000-signature commit through commit_parse
+    enc = commit.encode()
+    dec = Commit.decode(enc)
+    if "_cols" not in dec.__dict__:
+        raise AssertionError("Commit.decode did not take the native commit_parse")
+    blob, lens = dec.vote_sign_bytes_blob(chain)
+    off = 0
+    for i in range(COMMIT_SIGS):
+        ln = int(lens[i])
+        if blob[off:off + ln] != dec.vote_sign_bytes(chain, i):
+            raise AssertionError(f"vote_sign_bytes_blob differs from vote_sign_bytes at {i}")
+        off += ln
+    if dec.encode() != enc or Commit.decode(enc).hash() != commit.hash():
+        raise AssertionError("the decoded commit does not re-encode to the same bytes")
+    out["decode_10000_ms"] = median_ms(lambda: Commit.decode(enc), ROUTE_REPS)
+    out["sign_bytes_blob_10000_ms"] = median_ms(
+        lambda: Commit.decode(enc).vote_sign_bytes_blob(chain), ROUTE_REPS)
+    log(f"Commit.decode, {COMMIT_SIGS} signatures ({len(enc)} bytes): native commit_parse, "
+        f"re-encodes byte-identical, blob equals vote_sign_bytes on every index; decode "
+        f"{out['decode_10000_ms']:.3f} ms, decode + sign-bytes blob "
+        f"{out['sign_bytes_blob_10000_ms']:.3f} ms (median of {ROUTE_REPS}) [{card}]")
+
+    # 5. the light client's header stream: one mega-batch
+    t0_s = 1_700_000_000
+    trusted, stream = build_header_stream(chain, small_signers, STREAM_HEADERS, t0_s, dev,
+                                          seed=seed + 2)
+    now = Timestamp(t0_s + STREAM_HEADERS + 5, 0)
+    lanes = STREAM_HEADERS * NATIVE_SIGS
+    k, slot = STREAM_BAD
+    broken = list(stream)
+    lb = stream[k]
+    broken[k] = type(lb)(type(lb.signed_header)(
+        lb.signed_header.header, with_flipped_signature(lb.signed_header.commit, slot)),
+        lb.validators)
+
+    def leg5():
+        check_outcome(f"verify_stream, {STREAM_HEADERS} headers",
+                      lambda: LV.verify_stream(chain, trusted, stream, TRUST_PERIOD_S, now,
+                                               device=dev), None)
+        check_outcome(f"verify_stream, signature {slot} of header {k} flipped",
+                      lambda: LV.verify_stream(chain, trusted, broken, TRUST_PERIOD_S, now,
+                                               device=dev),
+                      ("ErrInvalidSignature",
+                       f"invalid signature in stream lane {k * NATIVE_SIGS + slot}"))
+
+    _, routes = counted("verify_stream", leg5)
+    if not counts["verify_stream"]["ladder_sub_mul8"]:
+        raise AssertionError("verify_stream: the ladder never launched")
+    out["stream_routes"] = routes
+    log(f"verify_stream: {STREAM_HEADERS} headers x {NATIVE_SIGS} = {lanes} lanes in one "
+        f"batch pass; lane {k * NATIVE_SIGS + slot} named when broken [{card}]")
+
+    # 6. the scheduler: two tenants coalesce into one dispatch
+    halves = {}
+    for t, lo in (("tenant-a", 0), ("tenant-b", TENANT_SIGS)):
+        t_signers = signers[lo:lo + TENANT_SIGS]
+        t_vals = fx.make_validator_set(t_signers, [p] * TENANT_SIGS)
+        t_bid = fx.make_block_id(t.encode())
+        t_commit = fx.make_commit(t, height, 0, t_bid, t_vals,
+                                  {s.address(): s for s in t_signers}, device=dev)
+        halves[t] = (t_vals, t_bid, t_commit)
+
+    def filled(t, c):
+        t_vals = halves[t][0]
+        bv = create_batch_verifier(t_vals.validators[0].pub_key, device=dev)
+        for i, cs in enumerate(c.signatures):
+            bv.add(t_vals.get_by_index(i).pub_key, c.vote_sign_bytes(t, i), cs.signature)
+        return bv
+
+    sched_out = {}
+    for case in ("valid", "tenant-b bad lane"):
+        commits = {t: h[2] for t, h in halves.items()}
+        if case != "valid":
+            commits["tenant-b"] = with_flipped_signature(commits["tenant-b"], TENANT_BAD_LANE)
+        own = {t: filled(t, c).verify() for t, c in commits.items()}
+        sched = S.VerifyScheduler(device=dev, manual=True)
+        try:
+            handles = {t: sched.submit(filled(t, c), tenant=t, source="consensus")
+                       for t, c in commits.items()}
+            n_done, _ = counted(f"sched_{case}", sched.drain_once,
+                                need=("decompress", "ladder_sub_mul8"))
+            got = {t: h.result(timeout=120) for t, h in handles.items()}
+        finally:
+            sched.close()
+        if n_done != 2 or sched.stats["coalesced_requests"] != 2 or \
+                sched.stats["dispatches"] != 1:
+            raise AssertionError(f"scheduler, {case}: not one coalesced dispatch: {sched.stats}")
+        c = counts[f"sched_{case}"]
+        if case == "valid" and c["ladder_sub_mul8"] != 1:
+            raise AssertionError(f"scheduler: {c['ladder_sub_mul8']} ladder launches, not 1")
+        if got != own:
+            raise AssertionError(f"scheduler, {case}: a tenant's bitmap differs from its own "
+                                 "verifier's")
+        want_b = [i != TENANT_BAD_LANE for i in range(TENANT_SIGS)] if case != "valid" else \
+            [True] * TENANT_SIGS
+        if got["tenant-a"] != (True, [True] * TENANT_SIGS) or \
+                got["tenant-b"] != (all(want_b), want_b):
+            raise AssertionError(f"scheduler, {case}: verdicts wrong")
+        sched_out[case] = {"stats": dict(sched.stats), "ladder_launches": c["ladder_sub_mul8"]}
+        log(f"scheduler, {case}: 2 x {TENANT_SIGS} signatures in one dispatch, each tenant's "
+            f"bitmap equal to its own verifier's [{card}]")
+
+    # the same through verify_commit under verify_context, from two threads
+    import threading
+
+    commits = {t: h[2] for t, h in halves.items()}
+    commits["tenant-b"] = with_flipped_signature(commits["tenant-b"], TENANT_BAD_LANE)
+    sched = S.VerifyScheduler(device=dev, manual=True)
+    results = {}
+
+    def tenant(t):
+        t_vals, t_bid, _ = halves[t]
+        with S.verify_context(sched, t, "consensus"):
+            results[t] = outcome_of(lambda: V.verify_commit(t, t_vals, t_bid, height,
+                                                            commits[t], device=dev))
+
+    threads = [threading.Thread(target=tenant, args=(t,), daemon=True) for t in halves]
+    try:
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 120
+        while sched._n_queued < 2:
+            if time.monotonic() > deadline or not all(th.is_alive() for th in threads):
+                raise AssertionError(f"the tenants never both queued: {results}")
+            time.sleep(0.005)
+        counted("sched_verify_context", sched.drain_once)
+        for th in threads:
+            th.join(120)
+    finally:
+        sched.close()
+    want = {"tenant-a": None, "tenant-b": ("ErrInvalidSignature",
+                                           f"invalid signature at index {TENANT_BAD_LANE}")}
+    if results != want or sched.stats["coalesced_requests"] != 2:
+        raise AssertionError(f"verify_context: {results}, {sched.stats}")
+    sched_out["verify_context"] = {"stats": dict(sched.stats), "outcomes": results}
+    out["scheduler"] = sched_out
+    log(f"verify_commit under verify_context, two tenants from two threads: one coalesced "
+        f"dispatch; tenant-a verifies, tenant-b fails naming index {TENANT_BAD_LANE} [{card}]")
+
+    # 7. timings, warm, median of ROUTE_REPS (not counted: the counts were read above)
+    timing = {}
+    for n, t_vals, t_commit in ((NATIVE_SIGS, small_vals, small), (COMMIT_SIGS, vals, commit)):
+        check_outcome("warm-up", lambda: V.verify_commit(chain, t_vals, bid, height, t_commit,
+                                                         device=dev), None)
+        walls = []
+        for _ in range(ROUTE_REPS):
+            t_commit.invalidate_memos()  # a fresh commit's sign bytes, as a node decodes one
+            t1 = time.perf_counter()
+            V.verify_commit(chain, t_vals, bid, height, t_commit, device=dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        split = stage_split_ms(verify_stages(chain, t_vals, t_commit, dev), ROUTE_REPS,
+                               prepare=t_commit.invalidate_memos)
+        pending = verify_stages(chain, t_vals, t_commit, dev)
+        x = None
+        for _, fn in pending[:3]:
+            x = fn(x)
+        prefetched = x._ready is not None if hasattr(x, "_ready") else False
+        x.result()
+        if n == COMMIT_SIGS and dev.type == "cuda" and not prefetched:
+            raise AssertionError(f"the {n}-signature commit's handle {type(x).__name__} did not "
+                                 "prefetch its all-ok scalar")
+        timing[n] = {"verify_commit_ms": float(np.median(walls)), "split_ms": split,
+                     "handle": type(x).__name__, "prefetched": prefetched}
+        log(f"verify_commit, {n} validators, warm (median of {ROUTE_REPS}): "
+            f"{timing[n]['verify_commit_ms']:.3f} ms; by hand: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split.items()) + f" ms ({type(x).__name__}) [{card}]")
+    walls = []
+    for _ in range(ROUTE_REPS + 1):
+        for lb in (trusted, *stream):
+            lb.signed_header.commit.invalidate_memos()
+        t1 = time.perf_counter()
+        LV.verify_stream(chain, trusted, stream, TRUST_PERIOD_S, now, device=dev)
+        walls.append(time.perf_counter() - t1)
+    stream_s = float(np.median(walls[1:]))
+    timing["stream"] = {"headers": STREAM_HEADERS, "lanes": lanes, "ms": stream_s * 1e3,
+                        "headers_per_s": STREAM_HEADERS / stream_s, "sigs_per_s": lanes / stream_s}
+    log(f"verify_stream, {STREAM_HEADERS} headers x {NATIVE_SIGS} validators, warm (median of "
+        f"{ROUTE_REPS}): {stream_s * 1e3:.3f} ms -> {STREAM_HEADERS / stream_s:.1f} headers/s, "
+        f"{lanes / stream_s:.0f} sigs/s [{card}]")
+    out["timing"] = timing
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["consumers"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["consumers"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1436,14 +1978,18 @@ def main(argv=None) -> int:
     # ---- phase 5: the native host engine
     host = host_engine_phase(dev, card, args.seed, commits[0], items, expect, route_sigs)
 
+    # ---- phase 6: the commit-verify consumers
+    consumers = consumers_phase(dev, card, args.seed, kern)
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
-                   rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host)
-    (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1))
+                   rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
+                   consumers=consumers)
+    (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phase 6 and 7: the kernel line, the card, the contract line
+    # ---- phase 7 and 8: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

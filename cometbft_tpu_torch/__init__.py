@@ -1,4 +1,6 @@
-"""PyTorch/CUDA twin of the cometbft_tpu Ed25519 commit-verify path.
+"""PyTorch/CUDA twin of the cometbft_tpu Ed25519 commit-verify path and
+the consumers that verify commits through it (`types/`, `light/`,
+`crypto/sched.py`).
 
 The package mirrors `cometbft_tpu`'s module tree (`ops/field.py` is the twin
 of `cometbft_tpu/ops/field.py`, and so on) and keeps the reference's

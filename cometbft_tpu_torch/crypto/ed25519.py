@@ -17,7 +17,9 @@ default:
 - `ops.ed25519_verify.verify_batch_cached_a` runs the decompress and
   ladder kernels and leaves (bitmap, all-ok) on the device;
 - `PendingBatch` / `collect_pending` fetch one all-ok scalar per batch,
-  and the bitmap only when that scalar says some lane failed.
+  and the bitmap only when that scalar says some lane failed; a
+  handle's `prefetch()` starts that scalar's copy into pinned host memory
+  early, and its `result()` waits on the copy's event.
 
 Two more device routes hash on the device, through the `sha512_reduce`
 kernel, SHA-512 and the reduction mod L in one launch
@@ -739,6 +741,39 @@ def verify_rlc_packed(buf: torch.Tensor, fields: dict, s_pad: int) -> torch.Tens
         t["weights"], t["c_digits"], s_rounds=s_pad)
 
 
+def _producer_stream(t: torch.Tensor):
+    """The CUDA stream current when a summary scalar was produced (None on
+    the CPU): its prefetch copy and event go on that stream, after the
+    kernels that wrote it."""
+    return torch.cuda.current_stream(t.device) if t.device.type == "cuda" else None
+
+
+def _prefetch_summary(p) -> None:
+    """Start the device->host copy of a handle's all-ok scalar into pinned
+    memory (`non_blocking=True`) on the stream that produced it, and
+    record an event after it there. Nothing on a CPU handle, or when
+    already started."""
+    if p._stream is None or p._ready is not None:
+        return
+    t = p._all_ok
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.stream(p._stream):
+        host.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(p._stream)
+    p._host_ok, p._ready = host, ready
+
+
+def _fetch_summary(p) -> bool:
+    """A handle's all-ok scalar on the host: after prefetch(), wait on its
+    event and read the pinned copy (never before the event completes);
+    else one blocking `.item()`."""
+    if p._ready is not None:
+        p._ready.synchronize()
+        return bool(p._host_ok.item())
+    return bool(p._all_ok.item())
+
+
 def _observe_latency(p) -> None:
     """Record the submit->result wall time of a pending handle in the
     per-route latency histogram, once (the first resolution)."""
@@ -760,7 +795,7 @@ class PendingBatch:
     the host with `ed25519_ref.verify`, as the reference does."""
 
     __slots__ = ("_dev", "_all_ok", "_n", "_precheck_fail", "_oversize_items",
-                 "_oversize_idx", "_path", "_t0")
+                 "_oversize_idx", "_path", "_t0", "_stream", "_host_ok", "_ready")
 
     def __init__(self, dev, all_ok, n, precheck_fail, oversize_items, oversize_idx):
         self._dev = dev
@@ -771,6 +806,8 @@ class PendingBatch:
         self._oversize_idx = oversize_idx
         self._path = None
         self._t0 = None
+        self._stream = _producer_stream(all_ok)
+        self._host_ok = self._ready = None
 
     def _finalize_fast(self, dev_all_ok: bool) -> tuple[bool, list[bool]]:
         _observe_latency(self)
@@ -783,8 +820,14 @@ class PendingBatch:
             out[i] = not self._precheck_fail[i] and ref.verify(*item)
         return all(out), out
 
+    def prefetch(self) -> None:
+        """Start the device->host copy of the all-ok scalar without
+        blocking, so a consumer overlaps it with other host work
+        (reference :1119)."""
+        _prefetch_summary(self)
+
     def result(self) -> tuple[bool, list[bool]]:
-        return self._finalize_fast(bool(self._all_ok.item()))
+        return self._finalize_fast(_fetch_summary(self))
 
 
 class PendingRLC:
@@ -794,7 +837,8 @@ class PendingRLC:
     as the reference falls back from batch to single verification
     (types/validation.go:304-311)."""
 
-    __slots__ = ("_all_ok", "_precheck_fail", "_lanes", "_path", "_t0")
+    __slots__ = ("_all_ok", "_precheck_fail", "_lanes", "_path", "_t0", "_stream",
+                 "_host_ok", "_ready")
 
     def __init__(self, all_ok, precheck_fail, lanes: Ed25519BatchVerifier):
         self._all_ok = all_ok
@@ -802,6 +846,8 @@ class PendingRLC:
         self._lanes = lanes  # force_perlane verifier holding the batch
         self._path = None
         self._t0 = None
+        self._stream = _producer_stream(all_ok)
+        self._host_ok = self._ready = None
 
     def _finalize_fast(self, dev_all_ok: bool) -> tuple[bool, list[bool]]:
         _observe_latency(self)
@@ -810,8 +856,12 @@ class PendingRLC:
             return all(bits), bits
         return self._lanes.submit().result()
 
+    def prefetch(self) -> None:
+        """As PendingBatch.prefetch (reference :1183)."""
+        _prefetch_summary(self)
+
     def result(self) -> tuple[bool, list[bool]]:
-        return self._finalize_fast(bool(self._all_ok.item()))
+        return self._finalize_fast(_fetch_summary(self))
 
 
 class DonePending:
@@ -830,6 +880,9 @@ class DonePending:
     def _finalize_fast(self, _dev_all_ok) -> tuple[bool, list[bool]]:
         _observe_latency(self)
         return self._ok, self._bits
+
+    def prefetch(self) -> None:
+        pass  # already on the host (reference :1147)
 
     def result(self) -> tuple[bool, list[bool]]:
         return self._finalize_fast(self._ok)

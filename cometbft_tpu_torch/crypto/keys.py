@@ -1,7 +1,8 @@
-"""Core crypto interfaces the verify path needs: PubKey and BatchVerifier.
+"""Core crypto interfaces the verify path needs: tmhash, PubKey and
+BatchVerifier.
 
 The port's own copy of the subset of `cometbft_tpu/crypto/keys.py` that
-the commit-verify path consumes. Behavior parity: reference
+the commit-verify path and the consensus types consume. Behavior parity: reference
 crypto/crypto.go:22-54 (interfaces) and crypto/tmhash (SHA-256 with
 20-byte truncated addresses).
 """
@@ -12,9 +13,14 @@ import hashlib
 from abc import ABC, abstractmethod
 
 
+def tmhash(data: bytes) -> bytes:
+    """SHA-256 (reference crypto/tmhash/hash.go:9-11)."""
+    return hashlib.sha256(data).digest()
+
+
 def tmhash20(data: bytes) -> bytes:
     """First 20 bytes of SHA-256 (reference crypto/tmhash TruncatedSize)."""
-    return hashlib.sha256(data).digest()[:20]
+    return tmhash(data)[:20]
 
 
 class PubKey(ABC):

@@ -3,7 +3,10 @@
 Twin of the Ed25519 half of `cometbft_tpu/crypto/native.py`: single and
 batch verification on the host's cores, the R||S||k row packer of the
 ladder route (8-wide multi-buffer SHA-512 where the host has AVX-512)
-and the RLC route's layout packer (`rlc_packer.inc`, a worker pool).
+and the RLC route's layout packer (`rlc_packer.inc`, a worker pool); and
+the host control plane's SHA-256 and merkle root (`merkle_native.inc`)
+and columnar commit codec (`commit_codec.inc`: `commit_parse`,
+`commit_sign_bytes`), which the consensus types use.
 
 The library is built on first use with the reference's command line
 
@@ -60,6 +63,23 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int,  # elem_size, nchunks
         _P, _P, _P, _P, _P,  # stream, neg, counts, weights, c
         ctypes.POINTER(_U64),  # s_rounds
+    ]),
+    "merkle_root_native": (None, [_U64, ctypes.c_char_p, ctypes.POINTER(_U64), ctypes.c_char_p]),
+    "sha256_oneshot": (None, [ctypes.c_char_p, _U64, ctypes.c_char_p]),
+    "sha256_engine": (ctypes.c_int, []),
+    "commit_parse": (ctypes.c_long, [
+        ctypes.c_char_p, _U64, _U64,  # buf, len, cap
+        ctypes.POINTER(_U64),  # head
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,  # flags, addr_lens, addrs
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),  # ts_s, ts_n
+        ctypes.c_char_p, ctypes.c_char_p,  # sig_lens, sigs
+        ctypes.POINTER(_U64),  # spans
+    ]),
+    "commit_sign_bytes": (ctypes.c_long, [
+        _U64, _P, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_char_p, _U64, ctypes.c_char_p, _U64,  # prefix_commit, prefix_nil
+        ctypes.c_char_p, _U64, _P, _U64,  # tail, out, cap
+        ctypes.POINTER(ctypes.c_uint32),  # lens_out
     ]),
 }
 
@@ -259,3 +279,94 @@ def rlc_pack(n, bucket, depth, pub_blob, sig_blob, msg_blob, msg_lens, skip_u8, 
         ctypes.byref(s_rounds),
     )
     return int(c_len), int(s_rounds.value)
+
+
+def commit_parse(buf: bytes):
+    """Columnar parse of a Commit wire buffer's signature list in one C
+    call. Returns (height_u64, round_u64, bid_span, cols) where cols =
+    (count, flags, addr_lens, addrs, ts_s, ts_n, sig_lens, sigs, spans),
+    or None when the library is absent or the buffer needs the
+    (stricter-error) Python walk of `types/block.py::Commit.decode`."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    cap = len(buf) // 6 + 4
+    while True:
+        head = (_U64 * 4)()
+        flags = ctypes.create_string_buffer(cap)
+        addr_lens = ctypes.create_string_buffer(cap)
+        addrs = ctypes.create_string_buffer(cap * 20)
+        ts_s = (ctypes.c_int64 * cap)()
+        ts_n = (ctypes.c_int64 * cap)()
+        sig_lens = ctypes.create_string_buffer(cap)
+        sigs = ctypes.create_string_buffer(cap * 64)
+        spans = (_U64 * (cap * 2))()
+        rc = lib.commit_parse(buf, len(buf), cap, head, flags, addr_lens, addrs,
+                              ts_s, ts_n, sig_lens, sigs, spans)
+        if rc == -2:  # more signatures than slots: retry with room
+            cap *= 2
+            continue
+        if rc < 0:
+            return None
+        return (int(head[0]), int(head[1]), (int(head[2]), int(head[3])),
+                (int(rc), flags.raw, addr_lens.raw, addrs.raw, ts_s, ts_n,
+                 sig_lens.raw, sigs.raw, spans))
+
+
+def commit_sign_bytes(n, flags, ts_s, ts_n, prefix_commit: bytes, prefix_nil: bytes,
+                      tail: bytes):
+    """Canonical sign bytes of every commit slot in one C call.
+
+    flags: uint8 array; ts_s / ts_n: int64 arrays (no copy). Returns (blob
+    bytes, uint32 lengths array; 0 for an absent slot), or None when the
+    library is absent or a flag is not ABSENT, COMMIT or NIL."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    # worst case a slot: 3-byte length prefix + prefix + 24-byte timestamp + tail
+    cap = int(n) * (max(len(prefix_commit), len(prefix_nil)) + len(tail) + 32)
+    out = np.empty(cap, np.uint8)
+    lens = np.empty(n, np.uint32)
+    total = lib.commit_sign_bytes(
+        n, flags.ctypes.data_as(_P),
+        ts_s.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ts_n.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        prefix_commit, len(prefix_commit), prefix_nil, len(prefix_nil),
+        tail, len(tail), out.ctypes.data_as(_P), cap,
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    if total < 0:
+        return None
+    return out[:total].tobytes(), lens
+
+
+def merkle_root(items) -> bytes:
+    """RFC-6962 merkle root of a list of byte leaves in one C call (leaf
+    prefix 0x00, inner 0x01, reference crypto/merkle/hash.go); raises
+    RuntimeError if the library is absent."""
+    lib = _required()
+    n = len(items)
+    offs = (_U64 * (n + 1))()
+    pos = 0
+    for i, it in enumerate(items):
+        offs[i] = pos
+        pos += len(it)
+    offs[n] = pos
+    out = ctypes.create_string_buffer(32)
+    lib.merkle_root_native(n, b"".join(items), offs, out)
+    return out.raw
+
+
+def sha256(data: bytes) -> bytes:
+    """SHA-256 of `data` in C (SHA-NI where the host has it); raises
+    RuntimeError if the library is absent."""
+    out = ctypes.create_string_buffer(32)
+    _required().sha256_oneshot(data, len(data), out)
+    return out.raw
+
+
+def sha256_engine() -> str:
+    """"sha-ni", "portable" or "unavailable"."""
+    lib = get_lib()
+    if lib is None:
+        return "unavailable"
+    return "sha-ni" if lib.sha256_engine() else "portable"

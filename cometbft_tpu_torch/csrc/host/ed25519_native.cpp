@@ -1,9 +1,10 @@
 // Copied unchanged from cometbft_tpu/csrc/ed25519_native.cpp, lines
 // 1-1336: its Ed25519 half (SHA-512, field, scalars, points, the IFMA and
 // multi-buffer SHA-512 includes, the extern "C" entry points through
-// ed25519_pack_rsk) and the include of the RLC packer. The merkle,
-// commit-codec, secp256k1, sr25519, BLS12-381, Reed-Solomon and G1-MSM
-// engines that the reference includes after line 1336 are not copied.
+// ed25519_pack_rsk) and the include of the RLC packer; then the includes
+// of the merkle engine and the commit codec (reference lines 1338-1342).
+// The secp256k1, sr25519, BLS12-381, Reed-Solomon and G1-MSM engines that
+// the reference includes after them are not copied.
 // Built with g++ on first use by cometbft_tpu_torch/crypto/native.py.
 
 // Native Ed25519 sign/verify for the host-side control plane.
@@ -1342,3 +1343,9 @@ void ed25519_pack_rsk(u64 n, const u8 *sigs, const u8 *pubs, const u8 *msgs,
 // RLC/MSM host packer — native port of crypto/rlc.py prepare
 // (own extern "C" exports: rlc_pack, rlc_packer_threads)
 #include "rlc_packer.inc"
+
+// SHA-256 + RFC-6962 merkle root engine (own extern "C" exports)
+#include "merkle_native.inc"
+
+// Columnar Commit wire parser (own extern "C" exports)
+#include "commit_codec.inc"

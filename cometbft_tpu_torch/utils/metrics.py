@@ -2,9 +2,11 @@
 `cometbft_tpu/utils/metrics.py` that the crypto dispatch records.
 
 Counter, Gauge and Histogram with labels on one `Registry`, and the
-`CryptoMetrics` bundle the verifier feeds (`batch_size`,
-`path_selected_total`, `verify_seconds`, `calibration_us_per_sig`) under
-the reference's names, so the two backends' metrics line up.
+`CryptoMetrics` bundle the verifier, the commit consumers and the shared
+scheduler feed (`batch_size`, `path_selected_total` and `verify_seconds`
+by path and curve, `calibration_us_per_sig`, `sched_queue_depth`,
+`sched_coalesced_total`, `sched_batch_sigs`) under the reference's names,
+so the two backends' metrics line up.
 `crypto_metrics()` hands out the process's bundle against
 `DEFAULT_REGISTRY`; `reset_bundles()` clears both (tests).
 """
@@ -125,6 +127,19 @@ class CryptoMetrics:
         self.calibration_us_per_sig = reg.gauge(
             "crypto", "calibration_us_per_sig", "Calibrated host-stage dispatch terms",
             labels=("term",))
+        self.sched_queue_depth = reg.gauge(
+            "crypto", "sched_queue_depth",
+            "Verify requests queued in the shared scheduler, per tenant",
+            labels=("tenant",))
+        self.sched_coalesced_total = reg.counter(
+            "crypto", "sched_coalesced_total",
+            "Verify requests that shared a coalesced mega-batch dispatch, "
+            "per request source (consensus/blocksync/light/admission)",
+            labels=("source",))
+        self.sched_batch_sigs = reg.histogram(
+            "crypto", "sched_batch_sigs",
+            "Signatures per coalesced scheduler dispatch",
+            buckets=CryptoMetrics.BATCH_BUCKETS)
 
 
 _bundle = None

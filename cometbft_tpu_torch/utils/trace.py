@@ -8,8 +8,9 @@
 ``ts`` (epoch seconds), ``pid``, ``name`` and ``kind`` ("span" or
 "event"), spans add ``dur_ms``, and the caller's fields follow.
 
-The port emits the reference's span names (`crypto.batch_verify`), so
-the two backends' traces line up.
+The port emits only span names the reference registers (SPAN_REGISTRY
+below, copied from `cometbft_tpu/utils/trace.py`), so the two backends'
+traces line up.
 """
 
 from __future__ import annotations
@@ -57,3 +58,12 @@ def emit(name: str, kind: str = "event", **fields) -> None:
             return
         _fh.write(line)
         _fh.flush()
+
+
+# Every name passed to emit() in the port, with the reference's description
+# (tests/test_torch_isolation.py checks both directions).
+SPAN_REGISTRY = {
+    "crypto.batch_verify": "one batch-verify dispatch: path, n, modeled host/wire/device terms",
+    "crypto.commit_partition": "per-curve share of one commit verification",
+    "crypto.sched_coalesce": "one shared-scheduler dispatch: n_requests/sigs/tenants/sources/per_tenant_sigs (crypto/sched.py)",
+}

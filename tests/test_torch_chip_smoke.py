@@ -101,3 +101,104 @@ def test_ops_challenge_leg_launches_each_standalone_kernel_once(monkeypatch):
     monkeypatch.setattr(F, "on_gpu", lambda t: True)
     counts = chip_smoke.ops_challenge_leg(torch.device("cpu"), cols)
     assert (counts["sha512_blocks"], counts["reduce512"], counts["sha512_reduce"]) == (1, 1, 0)
+
+
+# ---- phase 6's helpers (the consumers)
+
+
+@pytest.fixture(scope="module")
+def small_commit():
+    """An 8-validator commit of power 10, made by the port's factories on
+    the CPU."""
+    from cometbft_tpu_torch.utils import factories as fx
+
+    signers = fx.make_signers(8, seed=21, device="cpu")
+    vals = fx.make_validator_set(signers, [10] * 8)
+    bid = fx.make_block_id(b"smoke")
+    commit = fx.make_commit("c", 3, 0, bid, vals, {s.address(): s for s in signers},
+                            device="cpu")
+    return vals, bid, commit, signers
+
+
+@pytest.mark.parametrize("fn", chip_smoke.CONSUMER_FUNCS)
+@pytest.mark.parametrize("bad, absent, all_sigs", [
+    (None, 0, False), (1, 0, False), (6, 0, False), (6, 0, True), (None, 3, False),
+    (4, 3, False), (4, 3, True), (2, 2, False), (None, 6, True),
+])
+def test_expected_outcome_matches_the_consumers(small_commit, fn, bad, absent, all_sigs):
+    """`expected_outcome`, the phase's index and tally checks, against what
+    the port's consumers give on the CPU (held against the reference's in
+    tests/test_torch_validation.py), with the same helpers the phase uses
+    to break a commit."""
+    from cometbft_tpu_torch.types import validation as V
+
+    vals, bid, commit, _ = small_commit
+    c = chip_smoke.with_absent_prefix(commit, absent)
+    if bad is not None:
+        c = chip_smoke.with_flipped_signature(c, bad)
+    kw = {"verify_all_signatures": True} if all_sigs and fn != "verify_commit" else {}
+    if fn == "verify_commit_light_trusting":
+        call = lambda: V.verify_commit_light_trusting("c", vals, c, device="cpu", **kw)  # noqa: E731
+    else:
+        call = lambda: getattr(V, fn)("c", vals, bid, 3, c, device="cpu", **kw)  # noqa: E731
+    want = chip_smoke.expected_outcome(fn, 8, 10, bad=bad, absent=absent,
+                                       all_sigs=all_sigs and fn != "verify_commit")
+    assert chip_smoke.check_outcome(fn, call, want) == want
+    assert [cs.signature for cs in commit.signatures[absent:]] != \
+        [cs.signature for cs in c.signatures[absent:]] or bad is None
+
+
+def test_check_outcome_fails_on_another_outcome():
+    def boom():
+        raise ValueError("invalid signature at index 3")
+
+    with pytest.raises(AssertionError, match="got .*ValueError"):
+        chip_smoke.check_outcome("x", boom, ("ErrInvalidSignature", "invalid signature at index 3"))
+    with pytest.raises(AssertionError, match="got None"):
+        chip_smoke.check_outcome("x", lambda: None, ("ValueError", "m"))
+
+
+def test_header_stream_builder(small_commit):
+    """Consecutive heights one second apart, chained block ids, one set
+    signing every header: verify_stream passes; a flipped signature is
+    named by its stream lane."""
+    from cometbft_tpu_torch.light import verifier as LV
+    from cometbft_tpu_torch.types import Timestamp
+
+    signers = small_commit[3][:4]
+    trusted, stream = chip_smoke.build_header_stream("c", signers, 3, 1_000, "cpu")
+    assert [lb.height for lb in stream] == [2, 3, 4] and trusted.height == 1
+    assert [lb.time.seconds for lb in (trusted, *stream)] == [1_000, 1_001, 1_002, 1_003]
+    for prev, lb in zip((trusted, *stream), stream):
+        assert lb.signed_header.header.last_block_id == prev.signed_header.commit.block_id
+        lb.basic_validate("c")
+    now = Timestamp(1_010, 0)
+    LV.verify_stream("c", trusted, stream, chip_smoke.TRUST_PERIOD_S, now, device="cpu")
+    lb = stream[1]
+    broken = list(stream)
+    broken[1] = type(lb)(type(lb.signed_header)(
+        lb.signed_header.header, chip_smoke.with_flipped_signature(lb.signed_header.commit, 2)),
+        lb.validators)
+    with pytest.raises(Exception, match="invalid signature in stream lane 6"):
+        LV.verify_stream("c", trusted, broken, chip_smoke.TRUST_PERIOD_S, now, device="cpu")
+
+
+def test_stage_split_chains_the_stages_and_takes_medians():
+    calls = []
+    stages = [("a", lambda x: calls.append(("a", x)) or 1),
+              ("b", lambda x: calls.append(("b", x)) or x + 1)]
+    out = chip_smoke.stage_split_ms(stages, 3, prepare=lambda: calls.append("prep"))
+    assert calls == ["prep", ("a", None), ("b", 1)] * 4  # one warm-up, three timed
+    assert set(out) == {"a", "b", "sum"} and out["sum"] >= max(out["a"], out["b"]) >= 0
+
+
+def test_verify_stages_run_verify_commit_by_hand(small_commit):
+    vals, _, commit, _ = small_commit
+    stages = chip_smoke.verify_stages("c", vals, commit, "cpu")
+    assert [name for name, _ in stages] == ["sign_bytes", "adds", "submit", "result"]
+    x = None
+    for _, fn in stages:
+        x = fn(x)
+    assert x.result() == (True, [True] * 8)
+    out = chip_smoke.stage_split_ms(stages, 2, prepare=commit.invalidate_memos)
+    assert out["sum"] > 0

@@ -308,6 +308,36 @@ def test_verifier_on_the_card(dev):
         8, seed=3, device=dev)
 
 
+@pytest.mark.parametrize("route", ["ladder", "rlc"])
+def test_prefetch_copies_the_summary_into_pinned_memory(dev, monkeypatch, route):
+    """prefetch() on a CUDA handle copies its all-ok scalar into pinned host
+    memory behind an event on the producing stream; result() reads it
+    there and gives the same verdicts as an un-prefetched handle."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.crypto.testgen import generate_signed_batch
+
+    monkeypatch.setattr(E, "RLC_MIN", 1)
+    monkeypatch.setattr(E, "_rlc_beats_ladder", lambda n, b, device: route == "rlc")
+    items = generate_signed_batch(40, seed=9, device=dev)
+    for bad in (None, 13):
+        handles = []
+        for prefetch in (True, False):
+            bv = E.Ed25519BatchVerifier(device=dev)
+            for i, (pub, msg, sig) in enumerate(items):
+                bv.add(E.Ed25519PubKey(pub), msg + (b"!" if i == bad else b""), sig)
+            pending = bv.submit()
+            assert type(pending).__name__ == ("PendingRLC" if route == "rlc" else "PendingBatch")
+            assert pending._stream == torch.cuda.current_stream(dev)
+            if prefetch:
+                pending.prefetch()
+                pending.prefetch()  # a second call starts nothing more
+                assert pending._host_ok.is_pinned() and pending._ready is not None
+            handles.append(pending)
+        ok, bits = handles[0].result()
+        assert (ok, bits) == handles[1].result()
+        assert [i for i, b in enumerate(bits) if not b] == ([] if bad is None else [bad])
+
+
 def sha_inputs(rng, n):
     """n padded R||A||M rows of 64 to 239 bytes (the block edges first) and
     their flags, as the device-SHA route packs them (int32 bit patterns)."""

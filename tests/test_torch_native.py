@@ -113,7 +113,8 @@ def test_library_builds_and_names_its_engine():
     assert d.parent == native.BUILD_ROOT and d.name.startswith("host-")
     assert (d / native.LIB_NAME).is_file()
     assert {p.name for p in native._sources()} == {
-        "ed25519_native.cpp", "ed25519_ifma.inc", "sha512_mb.inc", "rlc_packer.inc"}
+        "ed25519_native.cpp", "ed25519_ifma.inc", "sha512_mb.inc", "rlc_packer.inc",
+        "merkle_native.inc", "commit_codec.inc"}
 
 
 def test_without_gxx_the_library_is_absent(monkeypatch, tmp_path):
