@@ -26,7 +26,7 @@ from ..crypto import merkle
 from ..crypto.keys import tmhash
 from ..encoding import proto as pb
 from .basic import BlockID, Timestamp, ZERO_BLOCK_ID, ZERO_TIME
-from .vote import SignedMsgType, canonical_vote_bytes
+from .vote import SignedMsgType
 
 MAX_HEADER_BYTES = 660  # 626 reference fields + the 34-byte da_root leaf
 BLOCK_PART_SIZE_BYTES = 65536  # reference types/part_set.go BlockPartSizeBytes

@@ -17,7 +17,7 @@ encoded nor decoded (UnsupportedKeyType names its type).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 from ..crypto import merkle
 from ..crypto.keys import PubKey
