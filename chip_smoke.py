@@ -139,13 +139,41 @@ and never prints its last line):
      all-ok prefetch) and result; `Commit.decode` at 10,000; and
      `verify_stream`'s headers/s and sigs/s; `results.json` key
      `consumers`;
-7. one JSON line `{"kernels": [...]}` with each kernel's launches,
+7. block-sync replay (`blocksync/replay.py`, `state/execution.py`,
+   `storage/`, `abci/`) through its entry points, each leg with the
+   launch counts set to 0 just before it and read right after:
+   `utils/factories.py::make_chain` makes a 256-block chain of 1,000
+   validators on the card from `--seed` (nonces from one `RPool`; its
+   fixed-base ladders must launch `fe_mul` and `fe_sq`), and
+   `ReplayEngine(store, BlockExecutor(AppConns(KVStoreApp())))` replays it
+   with fresh apps: batched (window 64, pipeline depth 2) with the default
+   dispatch, a warm pass then a timed one, then with the ladder and the
+   RLC seams pinned, then full mode (one height at a time, the native
+   route). Every pass must apply the 256 blocks to `make_chain`'s final
+   state (the same state bytes, app hash, validators hash and last block
+   id); each batched pass must verify 259,000 signatures in four windows
+   of 64,000 and 65,000 lanes at bucket 65,536, each window launching the
+   ladder (the whole batch, or RLC's B = 1 tail) and each RLC window
+   `accum_weight`, `region_sum` and `window_combine` (the RLC seam's layout
+   declines are counted). Logged: blocks/s and sigs/s of each pass, the
+   batched / full ratio, the timed passes' split per block (load and
+   decode; window queue: columns, sign-bytes blob, `add_batch`; submit;
+   resolve wait; apply), and a profile of one warm window (device
+   kernels, busy ms, window ms). Then a 6-block chain whose height-2
+   commit has index 777 broken: batched replay must raise
+   ErrInvalidSignature naming window lane 1,777 with no block applied, on
+   the default dispatch, the ladder seam and the RLC seam (resubmitted
+   while the layout declines, its blame rerun naming the lane); full mode
+   must raise as `expected_replay_outcome` says (the light check of
+   height 2 stops before index 777; block 3's validation names it).
+   `results.json` key `replay`;
+8. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-8. the card's name and power limit, then the last line
+9. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -1033,37 +1061,15 @@ def consumers_phase(dev, card, seed: int, kern: dict) -> dict:
     from cometbft_tpu_torch.crypto import sched as S
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
     from cometbft_tpu_torch.light import verifier as LV
-    from cometbft_tpu_torch.ops import kernels as K
     from cometbft_tpu_torch.types import Commit, Timestamp
     from cometbft_tpu_torch.types import validation as V
     from cometbft_tpu_torch.utils import factories as fx
-    from cometbft_tpu_torch.utils.metrics import crypto_metrics
 
     out, counts = {"card": card}, {}
     chain, height, p = CONSUMER_CHAIN, CONSUMER_HEIGHT, CONSUMER_POWER
 
-    def paths_since(before):
-        now = crypto_metrics().path_selected_total.values()
-        return {k[0]: v - before.get(k, 0.0) for k, v in now.items()
-                if k[1] == "ed25519" and v != before.get(k, 0.0)}
-
     def counted(leg, fn, need=()):
-        """fn() with every launch count set to 0 just before and read just
-        after; a kernel of `need` never launched is an error."""
-        torch.cuda.synchronize()
-        K.reset_launches()
-        before = crypto_metrics().path_selected_total.values()
-        res = fn()
-        torch.cuda.synchronize()
-        c = dict(K.launches)
-        counts[leg] = c
-        routes = paths_since(before)
-        launched = {k: v for k, v in c.items() if v}
-        log(f"consumers, {leg}: routes {routes}; launches {launched}")
-        for name in need:
-            if not c[name]:
-                raise AssertionError(f"consumers, {leg}: kernel {name} was never launched")
-        return res, routes
+        return counted_leg(counts, "consumers", leg, fn, need)
 
     # the data, made by the factories on `dev` (the fixed-base ladder twin:
     # fe_mul and fe_sq launches)
@@ -1356,6 +1362,333 @@ def consumers_phase(dev, card, seed: int, kern: dict) -> dict:
     for name in SOURCES:
         kern[name]["launches_by_route"]["consumers"] = sum(c[name] for c in counts.values())
         kern[name]["launches"] += kern[name]["launches_by_route"]["consumers"]
+    return out
+
+# ---- phase 7: block-sync replay
+
+REPLAY_CHAIN = "replay-bench"
+REPLAY_BLOCKS = 256  # the north star's 50,000 blocks cut to four windows
+REPLAY_VALIDATORS = 1_000
+REPLAY_WINDOW = 64  # the reference's default
+REPLAY_POWER = 10  # make_validator_set's default power
+REPLAY_BAD = (2, 777)  # (height, commit index) of the bad chain's flipped signature
+REPLAY_BAD_BLOCKS = 6
+REPLAY_STAGES = ("load", "queue", "submit", "resolve", "apply")
+
+
+def replay_window_lanes(n_blocks: int, n_vals: int, window: int) -> list[int]:
+    """Lanes of each batched-replay window over a chain of `n_blocks` blocks
+    from height 1, one validator set of `n_vals`, every vote a COMMIT: each
+    block's embedded last commit (none in block 1) and the tip commit."""
+    return [(min(lo + window - 1, n_blocks) - lo + 1 - (lo == 1) + 1) * n_vals
+            for lo in range(1, n_blocks + 1, window)]
+
+
+def replay_bad_lane(height: int, idx: int, n_vals: int, window: int) -> int:
+    """The window lane of commit index `idx` of height `height`'s commit, in
+    the first window that verifies it: block height + 1's embedded last
+    commit, or the tip commit of the window that ends at `height`."""
+    lo = (height - 1) // window * window + 1  # first block of height's window
+    before = (height - lo + 1 - (lo == 1)) * n_vals  # last commits of lo..height
+    return before + idx
+
+
+def expected_replay_outcome(mode: str, n_blocks: int, n_vals: int, power: int,
+                            bad_height: int, bad_idx: int, window: int):
+    """(exception class name, message, blocks applied first) of replaying a
+    make_chain chain whose commit of `bad_height` has the signature at
+    `bad_idx` broken, by the reference's rules. Batched: the window that
+    first verifies the commit fails naming its lane, before any of its
+    blocks applies. Full: at each height the light check of its commit
+    (which stops at 2/3, `expected_outcome`), then the block's validation,
+    whose full check of its last commit wraps the error."""
+    if mode == "batched":
+        lo = (bad_height - 1) // window * window + 1
+        return ("ErrInvalidSignature",
+                f"invalid signature in window lane "
+                f"{replay_bad_lane(bad_height, bad_idx, n_vals, window)}", lo - 1)
+    for h in range(1, n_blocks + 1):
+        if h == bad_height:
+            got = expected_outcome("verify_commit_light", n_vals, power, bad=bad_idx)
+            if got is not None:
+                return (*got, h - 1)
+        if h - 1 == bad_height:
+            got = expected_outcome("verify_commit", n_vals, power, bad=bad_idx)
+            if got is not None:
+                return ("BlockValidationError", f"invalid last commit: {got[1]}", h - 1)
+    return None
+
+
+def counted_leg(counts: dict, phase: str, leg: str, fn, need=()):
+    """fn() with every launch count set to 0 just before and read just after
+    (into counts[leg]); a kernel of `need` never launched is an error.
+    Returns (fn's result, the routes the crypto path counters saw)."""
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.utils.metrics import crypto_metrics
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    before = crypto_metrics().path_selected_total.values()
+    res = fn()
+    torch.cuda.synchronize()
+    c = dict(K.launches)
+    counts[leg] = c
+    now = crypto_metrics().path_selected_total.values()
+    routes = {k[0]: v - before.get(k, 0.0) for k, v in now.items()
+              if k[1] == "ed25519" and v != before.get(k, 0.0)}
+    log(f"{phase}, {leg}: routes {routes}; launches {({k: v for k, v in c.items() if v})}")
+    for name in need:
+        if not c[name]:
+            raise AssertionError(f"{phase}, {leg}: kernel {name} was never launched")
+    return res, routes
+
+
+def replay_phase(dev, card, seed: int, kern: dict) -> dict:
+    """Phase 7: block-sync replay on the card through its entry points:
+    `utils/factories.py::make_chain` makes a signed chain, and
+    `blocksync.ReplayEngine(store, BlockExecutor(AppConns(KVStoreApp())))`
+    replays it. Returns the `replay` results (launch counts by leg under
+    "counts")."""
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync import ReplayEngine
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.utils import factories as fx
+
+    out, counts = {"card": card}, {}
+    n, window, power = REPLAY_VALIDATORS, REPLAY_WINDOW, REPLAY_POWER
+
+    # the chain, made on the card (the fixed-base ladder: fe_mul, fe_sq)
+    t0 = time.perf_counter()
+    (store, final, genesis, _), _ = counted_leg(counts, "replay", "generate", lambda: fx.make_chain(
+        REPLAY_BLOCKS, n_validators=n, chain_id=REPLAY_CHAIN, txs_per_block=1, seed=seed,
+        device=dev, r_pool=fx.RPool(n, device=dev)), need=("fe_mul", "fe_sq"))
+    out["generate_s"] = time.perf_counter() - t0
+    log(f"replay: make_chain {REPLAY_BLOCKS} blocks x {n} validators on {dev} in "
+        f"{out['generate_s']:.2f} s ({counts['generate']['fe_mul']} fe_mul, "
+        f"{counts['generate']['fe_sq']} fe_sq launches) [{card}]")
+    want_lanes = replay_window_lanes(REPLAY_BLOCKS, n, window)
+    want_sigs = sum(want_lanes)
+
+    class Timed(ReplayEngine):
+        """The engine with its stages timed and each window's lanes, route
+        and bucket recorded (nothing of the engine changed)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.t = dict.fromkeys(REPLAY_STAGES, 0.0)
+            self.windows = []
+
+        def _load_window(self, *a):
+            t = time.perf_counter()
+            try:
+                return super()._load_window(*a)
+            finally:
+                self.t["load"] += time.perf_counter() - t
+
+        def _queue_window(self, *a):
+            t, s = time.perf_counter(), submit_s[0]
+            handle = super()._queue_window(*a)
+            sub = submit_s[0] - s
+            self.t["submit"] += sub
+            self.t["queue"] += time.perf_counter() - t - sub
+            self.windows.append((handle[2], getattr(handle[0], "_path", "none"),
+                                 E._bucket(handle[2])))
+            return handle
+
+        def _resolve_window(self, handle):
+            t = time.perf_counter()
+            try:
+                return super()._resolve_window(handle)
+            finally:
+                self.t["resolve"] += time.perf_counter() - t
+
+    class TimedExecutor(BlockExecutor):
+        def apply_block_preverified(self, *a):
+            t = time.perf_counter()
+            try:
+                return super().apply_block_preverified(*a)
+            finally:
+                self.t_apply += time.perf_counter() - t
+
+    submit_s = [0.0]
+    real_submit = E.Ed25519BatchVerifier.submit
+
+    def timed_submit(self):
+        t = time.perf_counter()
+        try:
+            return real_submit(self)
+        finally:
+            submit_s[0] += time.perf_counter() - t
+
+    def engine(store_, mode, **kw):
+        ex = TimedExecutor(AppConns(KVStoreApp()), device=dev)
+        ex.t_apply = 0.0
+        return Timed(store_, ex, verify_mode=mode, window=window, device=dev, **kw)
+
+    def replay(mode, store_=None, state0=None):
+        eng = engine(store_ or store, mode)
+        t = time.perf_counter()
+        state, stats = eng.run((state0 or genesis).copy())
+        torch.cuda.synchronize()
+        return eng, state, stats, time.perf_counter() - t
+
+    def check_final(what, state, stats, sigs):
+        if stats.blocks != REPLAY_BLOCKS or stats.sigs_verified != sigs:
+            raise AssertionError(f"replay, {what}: {stats.blocks} blocks, {stats.sigs_verified} "
+                                 f"signatures; want {REPLAY_BLOCKS}, {sigs}")
+        if (state.app_hash, state.validators.hash(), state.last_block_id) != \
+                (final.app_hash, final.validators.hash(), final.last_block_id) or \
+                state.encode() != final.encode():
+            raise AssertionError(f"replay, {what}: the final state is not make_chain's")
+
+    def batched(what, seam=None, need=()):
+        prev = E._rlc_beats_ladder
+        if seam is not None:
+            E._rlc_beats_ladder = lambda n_, b, device: seam
+        E.Ed25519BatchVerifier.submit = timed_submit
+        submit_s[0] = 0.0
+        try:
+            (eng, state, stats, wall), routes = counted_leg(
+                counts, "replay", what, lambda: replay("batched"), need=need)
+        finally:
+            E._rlc_beats_ladder = prev
+            E.Ed25519BatchVerifier.submit = real_submit
+        check_final(what, state, stats, want_sigs)
+        lanes = [w[0] for w in eng.windows]
+        if lanes != want_lanes or {w[2] for w in eng.windows} != {E._bucket(max(want_lanes))}:
+            raise AssertionError(f"replay, {what}: windows {eng.windows}, want lanes {want_lanes}")
+        stage = {k: v * 1e3 / REPLAY_BLOCKS for k, v in eng.t.items()}
+        stage["apply"] = eng.executor.t_apply * 1e3 / REPLAY_BLOCKS
+        res = {"wall_s": wall, "blocks_per_s": REPLAY_BLOCKS / wall,
+               "sigs_per_s": stats.sigs_verified / wall, "windows": eng.windows,
+               "routes": routes, "stage_ms_per_block": stage}
+        log(f"replay, batched {what}: {REPLAY_BLOCKS} blocks in {wall:.3f} s -> "
+            f"{res['blocks_per_s']:.1f} blocks/s, {res['sigs_per_s']:.0f} sigs/s; windows "
+            f"(lanes, route, bucket) {eng.windows}; per block ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stage.items()) + f" [{card}]")
+        return res
+
+    # batched, default dispatch: a warm pass (the dispatch model calibrates
+    # bucket 65,536 at its first decision), then the timed pass
+    out["default_warm"] = batched("default_warm")
+    out["default"] = batched("default")
+    # the calibrated model's pick for each window size (True: RLC); a
+    # window it sent to RLC that shows the ladder was declined by the layout
+    picks = {m: E._rlc_beats_ladder(m, E._bucket(m), dev) for m in sorted(set(want_lanes))}
+    out["dispatch_picks"] = picks
+    log(f"replay: the dispatch model's pick by window lanes at bucket "
+        f"{E._bucket(max(want_lanes))} (True = RLC): {picks}; the timed pass's windows took "
+        f"{[w[1] for w in out['default']['windows']]} [{card}]")
+    nw = len(want_lanes)
+    for what in ("default_warm", "default"):
+        # every window launches the ladder (the whole batch, or RLC's B = 1
+        # tail); the warm pass's counts also hold the dispatch model's
+        # calibration launches at bucket 65,536
+        c, paths = counts[what], [w[1] for w in out[what]["windows"]]
+        exact = what == "default"
+        if set(paths) - {"rlc", "ladder"} or \
+                (c["accum_weight"] != paths.count("rlc") if exact else
+                 c["accum_weight"] < paths.count("rlc")) or \
+                (c["ladder_sub_mul8"] != nw if exact else c["ladder_sub_mul8"] < nw):
+            raise AssertionError(f"replay, {what}: windows {paths}, launches {c}")
+    out["ladder"] = batched("ladder", seam=False, need=("decompress", "ladder_sub_mul8"))
+    c = counts["ladder"]
+    if c["ladder_sub_mul8"] != nw or c["decompress"] < nw or \
+            any(w[1] != "ladder" for w in out["ladder"]["windows"]):
+        raise AssertionError(f"replay, ladder pinned: windows {out['ladder']['windows']}, "
+                             f"launches {c}")
+    out["rlc"] = batched("rlc", seam=True)
+    c = counts["rlc"]
+    accepted = sum(1 for w in out["rlc"]["windows"] if w[1] == "rlc")
+    out["rlc_declines"] = nw - accepted
+    for name in ("accum_weight", "region_sum", "window_combine"):
+        if c[name] != accepted:
+            raise AssertionError(f"replay, RLC pinned: {accepted} windows took RLC, {name} "
+                                 f"launched {c[name]} times")
+    if c["ladder_sub_mul8"] != nw:  # a B = 1 tail a RLC window, a full ladder a declined one
+        raise AssertionError(f"replay, RLC pinned: ladder launches {c['ladder_sub_mul8']}")
+    log(f"replay, RLC pinned: {accepted} of {nw} windows took RLC, {nw - accepted} declined "
+        f"by the layout (the ladder verified them) [{card}]")
+
+    # full mode: the reference-faithful per-height path (native route a commit)
+    (eng, state, stats, wall), routes = counted_leg(counts, "replay", "full",
+                                                     lambda: replay("full"))
+    check_final("full", state, stats, REPLAY_BLOCKS * n)
+    out["full"] = {"wall_s": wall, "blocks_per_s": REPLAY_BLOCKS / wall,
+                   "sigs_per_s": stats.sigs_verified / wall, "routes": routes}
+    out["batched_over_full"] = out["default"]["blocks_per_s"] / out["full"]["blocks_per_s"]
+    log(f"replay, full: {REPLAY_BLOCKS} blocks in {wall:.3f} s -> "
+        f"{out['full']['blocks_per_s']:.1f} blocks/s, {out['full']['sigs_per_s']:.0f} sigs/s "
+        f"(light checks; routes {routes}); batched default / full = "
+        f"{out['batched_over_full']:.2f}x [{card}]")
+
+    # one warm window, profiled: device kernels, busy ms, window ms
+    first = [store.load_block(h) for h in range(1, window + 1)]
+    eng = engine(store, "batched")
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        eng._light_check_window(genesis, first)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    n_kernels, busy_ms, by_kernel, _ = profile_commit(
+        lambda: eng._light_check_window(genesis, first), "profile_replay_window.txt")
+    out["window_profile"] = {"lanes": want_lanes[0], "window_ms": float(np.median(walls)),
+                             "device_kernels": n_kernels, "busy_ms": busy_ms,
+                             "kernels": by_kernel}
+    log(f"profile, one warm {want_lanes[0]}-lane window (default dispatch): {n_kernels} device "
+        f"kernels ({ {k: v for k, v in by_kernel.items() if v} }), {busy_ms:.3f} ms busy of a "
+        f"{out['window_profile']['window_ms']:.3f} ms window (median of 3) [{card}]")
+
+    # the bad chain: one broken signature in height 2's commit
+    bad_store, _, bad_genesis, _ = fx.make_chain(
+        REPLAY_BAD_BLOCKS, n_validators=n, seed=seed, corrupt_sig=REPLAY_BAD, device=dev)
+    bad = {}
+    for what, seam in (("default", None), ("ladder", False), ("rlc", True)):
+        want = expected_replay_outcome("batched", REPLAY_BAD_BLOCKS, n, power, *REPLAY_BAD,
+                                       window)
+        prev = E._rlc_beats_ladder
+        if seam is not None:
+            E._rlc_beats_ladder = lambda n_, b, device: seam
+        try:
+            for attempt in range(1, 6):
+                eng = engine(bad_store, "batched")
+                got, _ = counted_leg(counts, "replay", f"bad_{what}", lambda: outcome_of(
+                    lambda: eng.run(bad_genesis.copy())))
+                applied = eng.executor.app.consensus._app.height
+                if got != want[:2] or applied != want[2]:
+                    raise AssertionError(f"replay of the bad chain, {what}: {got}, {applied} "
+                                         f"blocks applied; want {want}")
+                if seam is not True or counts[f"bad_{what}"]["accum_weight"]:
+                    break
+                log(f"replay, bad chain, RLC pinned: the layout declined (submit {attempt}); "
+                    "the ladder named the lane")
+            else:
+                raise AssertionError("the RLC layout declined the bad window 5 times in a row")
+        finally:
+            E._rlc_beats_ladder = prev
+        if seam is True and counts["bad_rlc"]["ladder_sub_mul8"] < 2:
+            raise AssertionError("replay, bad chain, RLC pinned: no blame rerun on the ladder")
+        bad[what] = {"outcome": got, "submits": attempt}
+    want = expected_replay_outcome("full", REPLAY_BAD_BLOCKS, n, power, *REPLAY_BAD, window)
+    eng = engine(bad_store, "full")
+    got, _ = counted_leg(counts, "replay", "bad_full",
+                         lambda: outcome_of(lambda: eng.run(bad_genesis.copy())))
+    applied = eng.executor.app.consensus._app.height
+    if got != want[:2] or applied != want[2]:
+        raise AssertionError(f"replay of the bad chain, full: {got}, {applied} blocks applied; "
+                             f"want {want}")
+    bad["full"] = {"outcome": got, "applied": applied}
+    out["bad_chain"] = bad
+    log(f"replay, bad chain ({REPLAY_BAD_BLOCKS} blocks, height {REPLAY_BAD[0]} index "
+        f"{REPLAY_BAD[1]} broken): batched (default, ladder, RLC) -> {bad['default']['outcome']},"
+        f" no block applied; full -> {got} after {applied} blocks [{card}]")
+
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["replay"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["replay"]
     return out
 
 
@@ -1981,15 +2314,18 @@ def main(argv=None) -> int:
     # ---- phase 6: the commit-verify consumers
     consumers = consumers_phase(dev, card, args.seed, kern)
 
+    # ---- phase 7: block-sync replay
+    replay = replay_phase(dev, card, args.seed, kern)
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
                    rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
-                   consumers=consumers)
+                   consumers=consumers, replay=replay)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phase 7 and 8: the kernel line, the card, the contract line
+    # ---- phase 8 and 9: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

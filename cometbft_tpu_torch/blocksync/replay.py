@@ -1,0 +1,427 @@
+"""Chain replay: the block-sync apply loop (north-star workload #4).
+
+Behavior parity with reference internal/blocksync/reactor.go:425-517: each
+block is verified with the *next* block's LastCommit via VerifyCommitLight,
+then applied through ABCI. Per-block that is one sig-verify-bound batch +
+one FinalizeBlock round trip.
+
+Device-first design: instead of one device dispatch per height (the
+reference's per-block CGo batch call), `window` heights of commit
+signatures are packed into ONE mega-batch (64,000-65,000 lanes at 1,000
+validators and window 64) and verified in one dispatch while the host
+applies previously-verified blocks — commit size no longer bounds device
+utilization (batch across heights, not just within a commit).
+
+Twin of `cometbft_tpu/blocksync/replay.py`: the engine takes `device=`
+("cuda" by default, "cpu" for the kernels' plain versions) where the
+reference takes `backend=`. Differences, none of them another verdict:
+- no certificate branch: the port's `types/block.py::decode_commit_any`
+  refuses a CertCommit by name, so no window can hold one;
+- the pipeline depth is the explicit `depth`, or 2: the port has no
+  multi-device mesh, whose term (1 + devices) comes with the mesh;
+- a validator key that is not Ed25519 raises ErrUnsupportedKeyType on the
+  per-slot path (the reference verifies such keys singly).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+from ..crypto import ed25519
+from ..state.execution import BlockExecutor, BlockValidationError
+from ..storage import BlockStore
+from ..types import Commit
+from ..types.block import block_id_for
+from ..types.validation import (
+    CommitError,
+    ErrInvalidSignature,
+    ErrNotEnoughVotingPower,
+    ErrUnsupportedKeyType,
+)
+
+
+@dataclass
+class ReplayStats:
+    blocks: int = 0
+    sigs_verified: int = 0
+    elapsed_s: float = 0.0
+
+    @property
+    def blocks_per_sec(self) -> float:
+        return self.blocks / self.elapsed_s if self.elapsed_s else 0.0
+
+
+class ReplayEngine:
+    """Replays a stored chain into an application.
+
+    verify_mode:
+      - "full": reference-faithful — VerifyCommitLight per height plus the
+        full LastCommit verification inside block validation.
+      - "batched": commit signatures for `window` consecutive heights are
+        verified in one device mega-batch (per-sig bitmap checked, +2/3
+        tallied per height), then blocks are applied with the in-validation
+        re-verification elided (it would re-check the same signatures).
+    """
+
+    def __init__(
+        self,
+        block_store: BlockStore,
+        executor: BlockExecutor,
+        verify_mode: str = "batched",
+        window: int = 64,
+        device="cuda",
+        depth: int | None = None,
+        sched=None,
+        tenant: str = "",
+    ):
+        # window=64 default: each window resolve pays one device->host
+        # round trip, so fewer, larger windows amortize it; 64 heights x
+        # 1,000 validators fill the 65,536-lane bucket
+        if verify_mode not in ("full", "batched"):
+            raise ValueError(f"unknown verify_mode {verify_mode}")
+        self.store = block_store
+        self.executor = executor
+        self.verify_mode = verify_mode
+        self.window = window
+        self.device = ed25519._resolve_device(device)
+        # in-flight window count: None = auto (see _pipeline_depth)
+        self.depth = depth
+        # optional crypto.sched.VerifyScheduler: window mega-batches
+        # coalesce with other consumers' work at blocksync priority
+        self.sched = sched
+        self.tenant = tenant
+
+    def _pipeline_depth(self) -> int:
+        """Windows in flight at once: 2 (the device verifies w+1 while the
+        host applies w — deeper queues just park work behind one device),
+        or the explicit `depth`. The reference's mesh term, 1 + n_devices,
+        waits for the port's mesh."""
+        if self.depth:
+            return max(1, int(self.depth))
+        return 2
+
+    def _commit_for(self, height: int) -> Commit | None:
+        c = self.store.load_block_commit(height)
+        if c is None:
+            c = self.store.load_seen_commit(height)
+        return c
+
+    def _queue_window(self, chain_id, validators, lc_vals, prev_bid,
+                      initial_height, blocks: list):
+        """Submit (without blocking) every signature check a window of
+        blocks needs; returns an opaque handle for _resolve_window.
+
+        Split from a synchronous check so run() can keep the device
+        verifying window w+1 while the host applies window w — the replay
+        loop is control-plane-bound (ABCI + stores + proto), and
+        serializing host and device work wastes whichever is cheaper."""
+        return self._window_batch(
+            chain_id, validators, lc_vals, prev_bid, initial_height, blocks
+        )
+
+    def _resolve_window(self, handle) -> int:
+        """Block on the device verdict; raise on any invalid signature
+        or insufficient tally. Returns signatures verified."""
+        pending, per_commit, nsigs = handle
+        ok, bits = pending.result()
+        if not ok:
+            for i, b in enumerate(bits):
+                if not b:
+                    raise ErrInvalidSignature(
+                        f"invalid signature in window lane {i}"
+                    )
+        for h, threshold, entries in per_commit:
+            tally = sum(entries)
+            if tally <= threshold:
+                raise ErrNotEnoughVotingPower(
+                    f"height {h}: tallied {tally} <= {threshold}"
+                )
+        return nsigs
+
+    def _window_batch(self, chain_id, validators, lc_vals_first, prev_bid,
+                      initial_height, blocks: list):
+        """Batch every signature check the per-block path would do across a
+        window of blocks, submitted (not resolved) in one device call.
+
+        Two families of commits go into the mega-batch:
+
+        1. Each block's EMBEDDED LastCommit, with full VerifyCommit
+           semantics (reference types/validation.go:21-34: every non-absent
+           signature — COMMIT and NIL votes alike — verified; COMMIT votes
+           tallied to +2/3; commit bound to the predecessor's computed
+           BlockID). This is exactly the check apply_block_preverified
+           elides, so eliding it is sound.
+        2. The STORED commit for the window's last block, VerifyCommitLight
+           semantics (reference internal/blocksync/reactor.go:462: the tip
+           needs an external +2/3 endorsement since no successor block in
+           this window embeds one).
+
+        The window only spans heights whose header.validators_hash equals
+        validators.hash() (caller enforces), so every embedded LastCommit
+        except the first block's was signed by `validators`; the first
+        block's was signed by `lc_vals_first`.
+        """
+        from ..types.validation import _check_commit_basics, ErrInvalidCommitSize
+
+        bv = ed25519.Ed25519BatchVerifier(device=self.device)
+        per_commit: list[tuple[int, int, list[int]]] = []
+        lane = 0
+
+        def queue_commit_columnar(commit, vals, height, all_sigs):
+            """Whole-commit queueing without per-CommitSig Python: the
+            native decode columns + the frozen set's ed25519 columns
+            feed one vectorized address check, one native sign-bytes
+            build, and one add_batch. Returns False (caller takes the
+            per-slot path) when any precondition is off — non-ed25519
+            keys, hand-built commit, odd flags/lengths — so behavior is
+            byte-identical where it matters and merely slower where it
+            is rare."""
+            nonlocal lane
+            cols = commit.verify_columns()
+            vcols = vals.ed25519_columns()
+            if cols is None or vcols is None:
+                return False
+            flags, addrs, addr_lens, sig_lens, sigs, _, _ = cols
+            addr_rows, pub_rows, powers = vcols
+            absent = flags == 1
+            # light (tip) semantics verify only COMMIT votes
+            # (reference VerifyCommitLight); full semantics verify
+            # every non-absent signature
+            live = ~absent if all_sigs else flags == 2
+            # structural gates: only ABSENT/COMMIT/NIL flags, 20-byte
+            # addresses and 64-byte signatures on verified lanes
+            if not (
+                (absent | (flags == 2) | (flags == 3)).all()
+                and (addr_lens[live] == 20).all()
+                and (sig_lens[live] == 64).all()
+                and (addr_lens[absent] == 0).all()
+            ):
+                return False
+            if not (addrs[live] == addr_rows[live]).all():
+                return False  # per-slot path localizes the mismatch
+            sb = commit.vote_sign_bytes_blob(chain_id)
+            if sb is None:
+                return False
+            msg_blob, lens = sb
+            if live.all():
+                bv.add_batch(pub_rows, sigs, msg_blob, lens)
+            else:
+                import numpy as _np
+
+                idx = _np.nonzero(live)[0]
+                offs = _np.zeros(len(lens) + 1, _np.int64)
+                _np.cumsum(lens, out=offs[1:])
+                parts = [
+                    msg_blob[offs[i]:offs[i + 1]] for i in idx
+                ]
+                bv.add_batch(
+                    pub_rows[idx], sigs[idx], b"".join(parts), lens[idx]
+                )
+            lane += int(live.sum())
+            commit_power = int(powers[flags == 2].sum())
+            per_commit.append(
+                (height, vals.total_voting_power() * 2 // 3,
+                 (commit_power,))
+            )
+            return True
+
+        def queue_commit(commit, vals, expect_bid, height, all_sigs):
+            nonlocal lane
+            _check_commit_basics(vals, commit, height, expect_bid)
+            if commit.size() != len(vals):
+                raise ErrInvalidCommitSize(
+                    f"commit size {commit.size()} != validator set {len(vals)}"
+                )
+            if queue_commit_columnar(commit, vals, height, all_sigs):
+                return
+            entries = []
+            msgs = commit.vote_sign_bytes_all(chain_id)
+            for idx, cs in enumerate(commit.signatures):
+                if cs.is_absent() or (not all_sigs and not cs.is_commit()):
+                    continue
+                val = vals.get_by_index(idx)
+                if val is None or val.address != cs.validator_address:
+                    raise ErrInvalidSignature(
+                        f"address mismatch at height {height} index {idx}"
+                    )
+                if val.pub_key.type_tag() != ed25519.KEY_TYPE:
+                    raise ErrUnsupportedKeyType(
+                        f"no verifier for key type {val.pub_key.type_tag()} "
+                        f"at height {height} index {idx}"
+                    )
+                bv.add(val.pub_key, msgs[idx], cs.signature)
+                lane += 1
+                if cs.is_commit():
+                    entries.append(val.voting_power)
+            per_commit.append(
+                (height, vals.total_voting_power() * 2 // 3, entries)
+            )
+
+        lc_vals = lc_vals_first
+        for blk in blocks:
+            h = blk.header.height
+            if h != initial_height:
+                if lc_vals is None:
+                    raise BlockValidationError(
+                        f"no validator set for last commit of height {h}"
+                    )
+                queue_commit(blk.last_commit, lc_vals, prev_bid, h - 1, all_sigs=True)
+            prev_bid = block_id_for(blk)
+            lc_vals = validators
+        tip = blocks[-1].header.height
+        commit = self._commit_for(tip)
+        if commit is None:
+            raise BlockValidationError(f"missing commit at height {tip}")
+        queue_commit(commit, validators, prev_bid, tip, all_sigs=False)
+        if not bv.count():
+            pending = ed25519.DonePending(True, [])
+        elif self.sched is not None:
+            pending = self.sched.submit(bv, tenant=self.tenant, source="blocksync")
+        else:
+            pending = bv.submit()
+        return pending, per_commit, lane
+
+    def _light_check_window(self, state, blocks: list) -> int:
+        """Synchronous window check (submit + resolve); kept for callers
+        outside the pipelined run loop."""
+        handle = self._queue_window(
+            state.chain_id, state.validators, state.last_validators,
+            state.last_block_id, state.initial_height, blocks,
+        )
+        return self._resolve_window(handle)
+
+    def _load_window(self, h: int, tip: int, vals_hash: bytes) -> list:
+        """Blocks [h .. h+window-1] bounded by tip and by the first
+        validator-set change (empty list when block h is stored but
+        belongs to a different set; raises when block h is missing)."""
+        w_end = min(h + self.window - 1, tip)
+        blocks = []
+        for hh in range(h, w_end + 1):
+            blk = self.store.load_block(hh)
+            if blk is None:
+                if hh == h:
+                    raise BlockValidationError(f"missing block at height {h}")
+                break
+            if blk.header.validators_hash != vals_hash:
+                break
+            blocks.append(blk)
+        return blocks
+
+    def run(self, state, to_height: int | None = None) -> tuple[object, ReplayStats]:
+        """Replay from state.last_block_height+1 to `to_height` (or tip).
+
+        Batched mode pipelines depth-N (_pipeline_depth): windows
+        w+1..w+N-1's signature batches are in flight while the host
+        applies window w's blocks (sound within a constant-validator-set
+        span: each window's verification inputs — validator set and
+        predecessor block id — are known before w is applied; across a
+        set change the pipeline drains and re-queues with the post-apply
+        state)."""
+        stats = ReplayStats()
+        t0 = time.perf_counter()
+        tip = to_height or self.store.height()
+        h = state.last_block_height + 1
+        if self.verify_mode == "batched" and h <= tip:
+            from collections import deque
+
+            depth = self._pipeline_depth()
+            cur_hash = state.validators.hash()
+            blocks = self._load_window(h, tip, cur_hash)
+            if not blocks:
+                raise BlockValidationError(f"cannot form window at height {h}")
+            handle = self._queue_window(
+                state.chain_id, state.validators, state.last_validators,
+                state.last_block_id, state.initial_height, blocks,
+            )
+            q: deque = deque([(blocks, handle)])
+            last_qed = blocks  # last window queued (speculation anchor)
+            spec_dead = False  # stop speculating until the serial requeue
+
+            def fill():
+                # top the in-flight queue up to `depth` windows,
+                # speculatively: problems in a later window's data must
+                # not abort before the already-verified earlier windows
+                # apply (they resurface in the serial re-queue below,
+                # after that progress is durable)
+                nonlocal last_qed, spec_dead
+                while not spec_dead and len(q) < depth:
+                    nh = last_qed[-1].header.height + 1
+                    if nh > tip:
+                        return
+                    try:
+                        nxt = self._load_window(nh, tip, cur_hash)
+                        if not nxt:
+                            spec_dead = True
+                            return
+                        # same-set continuation: every window in the
+                        # span was signed by the CURRENT validator set
+                        nxt_handle = self._queue_window(
+                            state.chain_id, state.validators,
+                            state.validators, block_id_for(last_qed[-1]),
+                            state.initial_height, nxt,
+                        )
+                    except (CommitError, BlockValidationError):
+                        spec_dead = True
+                        return
+                    # start the device->host fetch of the all-ok scalar
+                    # early so it rides under later queueing/apply work
+                    # instead of blocking resolve
+                    nxt_handle[0].prefetch()
+                    q.append((nxt, nxt_handle))
+                    last_qed = nxt
+
+            while q:
+                fill()  # keep the device busy before blocking
+                blocks, handle = q.popleft()
+                handle[0].prefetch()
+                stats.sigs_verified += self._resolve_window(handle)
+                for block in blocks:
+                    bid = block_id_for(block)
+                    state = self.executor.apply_block_preverified(state, bid, block)
+                    stats.blocks += 1
+                nh = blocks[-1].header.height + 1
+                if q or nh > tip:
+                    continue
+                # pipeline drained mid-chain: validator set changed at
+                # the boundary (or speculation failed) — reload and
+                # queue against the post-apply state
+                cur_hash = state.validators.hash()
+                spec_dead = False
+                nxt = self._load_window(nh, tip, cur_hash)
+                if not nxt:
+                    raise BlockValidationError(
+                        f"cannot form window at height {nh}"
+                    )
+                nxt_handle = self._queue_window(
+                    state.chain_id, state.validators,
+                    state.last_validators, state.last_block_id,
+                    state.initial_height, nxt,
+                )
+                q.append((nxt, nxt_handle))
+                last_qed = nxt
+            stats.elapsed_s = time.perf_counter() - t0
+            return state, stats
+        # "full" mode: reference-faithful per-height verify + apply
+        from ..crypto.sched import verify_context
+        from ..types.validation import verify_commit_light
+
+        while h <= tip:
+            block = self.store.load_block(h)
+            commit = self._commit_for(h)
+            if block is None or commit is None:
+                raise BlockValidationError(f"missing block/commit at {h}")
+            bid = block_id_for(block)
+            with verify_context(self.sched, self.tenant, "blocksync"):
+                verify_commit_light(
+                    state.chain_id, state.validators, bid, h, commit,
+                    device=self.device,
+                )
+            stats.sigs_verified += sum(
+                1 for cs in commit.signatures if cs.is_commit()
+            )
+            state = self.executor.apply_block(state, bid, block)
+            stats.blocks += 1
+            h += 1
+        stats.elapsed_s = time.perf_counter() - t0
+        return state, stats

@@ -1,7 +1,6 @@
-"""Deterministic fixtures: signers, validator sets, commits.
+"""Deterministic fixtures: signers, validator sets, commits, chains.
 
-Twin of `cometbft_tpu/utils/factories.py` (without `make_chain`, which
-needs ABCI and state execution, and `RPool`). For large validator sets
+Twin of `cometbft_tpu/utils/factories.py`. For large validator sets
 the Ed25519 keys are *scalar signers* — the secret is a raw scalar a with
 pubkey [a]B computed by the device fixed-base ladder in one batch
 (`_fixed_base_batch`: `ops/curve.py::fixed_base` at the verifier's
@@ -10,7 +9,9 @@ finished host-side as S = r + k*a (mod L). These are standard verifiable
 Ed25519 signatures; only derivation-from-seed is skipped, which verifiers
 never see. For the same seed the signers, validator sets and commits are
 byte-identical to the reference's: both draw the same numbers from
-`numpy.random.default_rng(seed)` in the same order.
+`numpy.random.default_rng(seed)` in the same order; `make_chain` runs
+the port's executor and ABCI app, so its store's KV items and its final
+state are the reference's bytes too.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ..types import (
     Validator,
     ValidatorSet,
 )
-from ..types.block import BlockIDFlag
+from ..types.block import BlockIDFlag, block_id_for  # noqa: F401 (re-exported)
 
 
 @dataclass
@@ -70,12 +71,51 @@ def make_signers(n: int, seed: int = 0, device="cuda") -> list[ScalarSigner]:
     return [ScalarSigner(s, pubs[i].tobytes()) for i, s in enumerate(scalars)]
 
 
+class RPool:
+    """Pre-batched R nonce points for chunked chain generation.
+
+    batch_sign's per-call _fixed_base_batch pays one device launch
+    sequence and round trip; the pool computes R encodings for
+    `blocks_per_fill` commits in ONE `_fixed_base_batch` on `device` and
+    hands them out per block (the last block's first, as the
+    reference's list pop does)."""
+
+    def __init__(self, n_signers: int, blocks_per_fill: int = 32,
+                 seed: int = 1, device="cuda"):
+        self.n = n_signers
+        self.per_fill = blocks_per_fill
+        self.seed = seed
+        self.device = device
+        self._buf: list[tuple[list[int], np.ndarray]] = []
+
+    def next(self) -> tuple[list[int], np.ndarray]:
+        if not self._buf:
+            rng = np.random.default_rng(self.seed)
+            self.seed += 1
+            total = self.n * self.per_fill
+            rs = [
+                int.from_bytes(rng.bytes(32), "little") % ref.L or 1
+                for _ in range(total)
+            ]
+            encs = _fixed_base_batch(rs, self.device)
+            for i in range(self.per_fill):
+                lo = i * self.n
+                self._buf.append((rs[lo:lo + self.n], encs[lo:lo + self.n]))
+        return self._buf.pop()
+
+
 def batch_sign(signers: list[ScalarSigner], msgs: list[bytes], seed: int = 1,
-               device="cuda") -> list[bytes]:
-    """One signature per (signer, msg) pair, R points computed on `device`."""
-    rng = np.random.default_rng(seed)
-    rs = [int.from_bytes(rng.bytes(32), "little") % ref.L or 1 for _ in signers]
-    r_encs = _fixed_base_batch(rs, device)
+               device="cuda",
+               nonces: tuple[list[int], np.ndarray] | None = None) -> list[bytes]:
+    """One signature per (signer, msg) pair, R points computed on `device`
+    (or taken from a pre-batched RPool draw via `nonces`)."""
+    if nonces is not None:
+        rs, r_encs = nonces
+        rs, r_encs = rs[:len(signers)], r_encs[:len(signers)]
+    else:
+        rng = np.random.default_rng(seed)
+        rs = [int.from_bytes(rng.bytes(32), "little") % ref.L or 1 for _ in signers]
+        r_encs = _fixed_base_batch(rs, device)
     sigs = []
     for signer, msg, r, r_enc in zip(signers, msgs, rs, r_encs):
         r_b = r_enc.tobytes()
@@ -127,6 +167,95 @@ def make_block_id(tag: bytes = b"block") -> BlockID:
     return BlockID(h, PartSetHeader(1, hashlib.sha256(tag + b"parts").digest()))
 
 
+def make_chain(
+    n_blocks: int,
+    n_validators: int = 4,
+    chain_id: str = "replay-chain",
+    txs_per_block: int = 2,
+    app=None,
+    block_store=None,
+    seed: int = 0,
+    device="cuda",
+    nil_votes: dict[int, set[int]] | None = None,
+    corrupt_sig: tuple[int, int] | None = None,
+    verify_last_commit: bool = True,
+    r_pool: "RPool | None" = None,
+    start_state=None,
+    start_commit: Commit | None = None,
+    start_height: int = 1,
+):
+    """Generate a fully-valid signed chain by actually running the executor.
+
+    Returns (block_store, final_state, genesis_state, signers). Every block
+    is built with create_proposal_block, committed by all validators
+    (device-batched signing), and applied through ABCI — so replaying the
+    store reproduces byte-identical state.
+
+    nil_votes maps height -> validator indices casting NIL precommits in
+    that height's commit. corrupt_sig=(height, idx) flips a byte of that
+    commit signature after signing (the corrupted commit still propagates
+    into the next block's embedded LastCommit, so verification during
+    generation is elided for such chains — they exist to test that replay
+    REJECTS them).
+
+    verify_last_commit=False skips LastCommit verification during
+    generation: the commits are signed here and known-valid, and the
+    REPLAY of the generated store is where verification is measured.
+    r_pool amortizes the device nonce-point launches over many blocks.
+    start_state/start_commit/start_height continue a chain from a prior
+    make_chain call's (state, last_commit) so arbitrarily long chains
+    build in bounded-memory chunks into one shared block_store.
+    """
+    from ..abci.client import AppConns
+    from ..abci.kvstore import KVStoreApp
+    from ..state.execution import BlockExecutor, make_genesis_state
+    from ..crypto.ed25519 import _resolve_device
+    from ..storage import BlockStore, MemKV
+
+    device = _resolve_device(device)
+    signers = make_signers(n_validators, seed=seed, device=device)
+    vals = make_validator_set(signers)
+    by_addr = {s.address(): s for s in signers}
+    app = app or KVStoreApp()
+    store = block_store or BlockStore(MemKV())
+    executor = BlockExecutor(AppConns(app), device=device)
+    genesis = make_genesis_state(chain_id, vals)
+    state = start_state if start_state is not None else genesis.copy()
+
+    last_commit = start_commit if start_commit is not None else Commit()
+    for h in range(start_height, start_height + n_blocks):
+        txs = [b"k%d-%d=v%d" % (h, i, i) for i in range(txs_per_block)]
+        proposer = state.validators.get_proposer()
+        block = executor.create_proposal_block(
+            h, state, last_commit, proposer.address, txs,
+            block_time=state.last_block_time,
+        )
+        bid = block_id_for(block)
+        vals_h = state.validators  # the set that signs height h's commit
+        state = executor.apply_block(
+            state, bid, block,
+            last_commit_preverified=(
+                corrupt_sig is not None or not verify_last_commit
+            ),
+        )
+        commit = make_commit(
+            chain_id, h, 0, bid, vals_h, by_addr,
+            time_ns=state.last_block_time.unix_ns() + 1_000_000_000,
+            nil=(nil_votes or {}).get(h),
+            device=device,
+            r_pool=r_pool,
+        )
+        if corrupt_sig is not None and corrupt_sig[0] == h:
+            cs = commit.signatures[corrupt_sig[1]]
+            sig = bytearray(cs.signature)
+            sig[0] ^= 0xFF
+            cs.signature = bytes(sig)
+            commit.invalidate_memos()
+        store.save_block(block, commit)
+        last_commit = commit
+    return store, state, genesis, signers
+
+
 def make_commit(
     chain_id: str,
     height: int,
@@ -139,6 +268,7 @@ def make_commit(
     nil: set[int] | None = None,
     sign_seed: int | None = None,
     device="cuda",
+    r_pool: "RPool | None" = None,
 ) -> Commit:
     """A commit signed by every validator (minus `absent` indices; `nil`
     indices sign a NIL precommit), ordered to match the validator set."""
@@ -173,6 +303,7 @@ def make_commit(
     sigs = batch_sign(
         signers, msgs, seed=(sign_seed if sign_seed is not None else height),
         device=device,
+        nonces=r_pool.next() if r_pool is not None else None,
     )
     j = 0
     for idx in range(len(vals.validators)):

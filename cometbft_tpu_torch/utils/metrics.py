@@ -1,19 +1,29 @@
 """Prometheus-style metrics: the port's minimal copy of the parts of
-`cometbft_tpu/utils/metrics.py` that the crypto dispatch records.
+`cometbft_tpu/utils/metrics.py` that the ported modules record.
 
-Counter, Gauge and Histogram with labels on one `Registry`, and the
-`CryptoMetrics` bundle the verifier, the commit consumers and the shared
-scheduler feed (`batch_size`, `path_selected_total` and `verify_seconds`
-by path and curve, `calibration_us_per_sig`, `sched_queue_depth`,
-`sched_coalesced_total`, `sched_batch_sigs`) under the reference's names,
-so the two backends' metrics line up.
-`crypto_metrics()` hands out the process's bundle against
-`DEFAULT_REGISTRY`; `reset_bundles()` clears both (tests).
+Counter, Gauge and Histogram (with per-bucket exemplars) with labels on
+one `Registry`, and the bundles, under the reference's names so the two
+backends' metrics line up:
+
+- `CryptoMetrics`, fed by the verifier, the commit consumers and the
+  shared scheduler (`batch_size`, `path_selected_total` and
+  `verify_seconds` by path and curve, `calibration_us_per_sig`,
+  `sched_queue_depth`, `sched_coalesced_total`, `sched_batch_sigs`);
+- `StateMetrics` (`state/execution.py`), `StoreMetrics`
+  (`storage/blockstore.py`) and `BlockSyncMetrics` (the block-sync
+  gauges and counters; the port's replay loop records none of them, as
+  the reference's does not outside its certificate branch);
+- of `ConsensusMetrics` and `MempoolMetrics`, only the tx-lifecycle
+  histograms that `utils/txlife.py` feeds.
+
+`crypto_metrics()`, `state_metrics()`, ... hand out the process's bundle
+against `DEFAULT_REGISTRY`; `reset_bundles()` clears them all (tests).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 NAMESPACE = "cometbft"
 
@@ -58,16 +68,30 @@ class Histogram(_Metric):
         self.buckets = tuple(buckets or self.DEFAULT_BUCKETS)
         self._counts: dict[tuple, list[int]] = {}
         self._sums: dict[tuple, float] = {}
+        # per-(labelset, bucket index) exemplar: (id, value, epoch ts) —
+        # latest observation wins, like the prometheus client libraries
+        self._exemplars: dict[tuple, dict[int, tuple]] = {}
 
-    def observe(self, value: float, *labels) -> None:
+    def observe(self, value: float, *labels, exemplar: str | None = None) -> None:
         key = self._key(tuple(labels))
         with self._lock:
             counts = self._counts.setdefault(key, [0] * (len(self.buckets) + 1))
+            bucket_idx = len(self.buckets)  # +Inf
             for i, b in enumerate(self.buckets):
                 if value <= b:
                     counts[i] += 1
+                    bucket_idx = min(bucket_idx, i)
             counts[-1] += 1  # +Inf
             self._sums[key] = self._sums.get(key, 0.0) + value
+            if exemplar is not None:
+                self._exemplars.setdefault(key, {})[bucket_idx] = (
+                    str(exemplar), value, time.time())
+
+    def exemplars(self) -> dict[tuple, dict[int, tuple]]:
+        """{labels: {bucket index: (id, value, ts)}}; bucket index
+        len(buckets) is +Inf."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._exemplars.items()}
 
     def snapshot(self) -> dict[tuple, dict]:
         """{labels: {"count": n, "sum": s}}."""
@@ -109,6 +133,100 @@ class Registry:
 
 DEFAULT_REGISTRY = Registry()
 
+# Sub-second buckets for the tx-lifecycle waterfall: single-node stage
+# latencies live in the 0.5ms–2.5s band (admission windows are ~ms,
+# consensus rounds ~100ms–1s); the default buckets start too coarse.
+TX_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                    0.1, 0.25, 0.5, 1.0, 2.5)
+
+
+class ConsensusMetrics:
+    """The tx-lifecycle part of the reference's bundle (the rest waits
+    for the consensus slice)."""
+
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        # tx lifecycle observatory (utils/txlife.py): consensus-side
+        # waterfall stages + the end-to-end arrival->commit latency,
+        # bucket exemplars carrying sampled tx hashes
+        self.tx_stage_seconds = reg.histogram(
+            "consensus", "tx_stage_seconds",
+            "Per-tx lifecycle stage latency, consensus-side stages "
+            "(proposal_wait/consensus/apply/notify); sampled txs only",
+            labels=("stage",), buckets=TX_STAGE_BUCKETS)
+        self.tx_commit_seconds = reg.histogram(
+            "consensus", "tx_commit_seconds",
+            "Per-tx end-to-end arrival->commit latency; sampled txs only",
+            buckets=TX_STAGE_BUCKETS)
+
+
+class MempoolMetrics:
+    """The tx-lifecycle part of the reference's bundle (the rest waits
+    for the mempool slice)."""
+
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        # tx lifecycle observatory (utils/txlife.py): mempool-side
+        # waterfall stages, bucket exemplars carrying sampled tx hashes
+        self.tx_stage_seconds = reg.histogram(
+            "mempool", "tx_stage_seconds",
+            "Per-tx lifecycle stage latency, mempool-side stages "
+            "(admit_wait/verify/app_check); sampled txs only",
+            labels=("stage",), buckets=TX_STAGE_BUCKETS)
+
+
+class StateMetrics:
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.block_processing_time = reg.histogram(
+            "state", "block_processing_time",
+            "ApplyBlock wall time (reference execution.go:230)")
+        self.block_verify_time = reg.histogram(
+            "state", "block_verify_time",
+            "Commit signature verification wall time (TPU kernel path)")
+
+
+class StoreMetrics:
+    # commit bytes span ~100 B certificates to multi-MB signature
+    # columns at 10k validators
+    COMMIT_BUCKETS = (128, 512, 2048, 8192, 32768, 131072, 524288, 2097152)
+
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.commit_bytes = reg.histogram(
+            "store", "commit_bytes",
+            "Encoded canonical-commit bytes written per block "
+            "(certificate-native BLS heights shrink this ~N/1)",
+            buckets=StoreMetrics.COMMIT_BUCKETS)
+
+
+class BlockSyncMetrics:
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.syncing = reg.gauge("blocksync", "syncing",
+                                 "1 while block sync is running")
+        self.latest_block_height = reg.gauge(
+            "blocksync", "latest_block_height",
+            "Highest height applied by block sync")
+        self.num_peers = reg.gauge("blocksync", "num_peers",
+                                   "Peers in the block pool")
+        self.pending_requests = reg.gauge(
+            "blocksync", "pending_requests",
+            "In-flight block requests without a block yet")
+        self.peer_height = reg.gauge(
+            "blocksync", "peer_height",
+            "Reported chain height per pool peer", labels=("peer",))
+        self.blocks_applied_total = reg.counter(
+            "blocksync", "blocks_applied_total",
+            "Blocks verified and applied by block sync")
+        self.bad_blocks_total = reg.counter(
+            "blocksync", "bad_blocks_total",
+            "Blocks that failed verification (request redone)")
+        self.cert_verify_seconds = reg.histogram(
+            "blocksync", "cert_verify_seconds",
+            "Certificate (one-pairing) commit verification wall time "
+            "during replay, per commit", buckets=TX_STAGE_BUCKETS)
+
 
 class CryptoMetrics:
     BATCH_BUCKETS = (1, 64, 256, 1024, 4096, 10240, 16384, 65536)
@@ -142,21 +260,44 @@ class CryptoMetrics:
             buckets=CryptoMetrics.BATCH_BUCKETS)
 
 
-_bundle = None
-_bundle_lock = threading.Lock()
+_BUNDLES: dict[str, object] = {}
+_BUNDLES_LOCK = threading.Lock()
+
+
+def _bundle(name: str, cls):
+    with _BUNDLES_LOCK:
+        b = _BUNDLES.get(name)
+        if b is None:
+            b = _BUNDLES[name] = cls()
+    return b
+
+
+def consensus_metrics() -> ConsensusMetrics:
+    return _bundle("consensus", ConsensusMetrics)
+
+
+def mempool_metrics() -> MempoolMetrics:
+    return _bundle("mempool", MempoolMetrics)
+
+
+def state_metrics() -> StateMetrics:
+    return _bundle("state", StateMetrics)
+
+
+def blocksync_metrics() -> BlockSyncMetrics:
+    return _bundle("blocksync", BlockSyncMetrics)
+
+
+def store_metrics() -> StoreMetrics:
+    return _bundle("store", StoreMetrics)
 
 
 def crypto_metrics() -> CryptoMetrics:
-    global _bundle
-    with _bundle_lock:
-        if _bundle is None:
-            _bundle = CryptoMetrics()
-        return _bundle
+    return _bundle("crypto", CryptoMetrics)
 
 
 def reset_bundles() -> None:
-    """Drop the bundle and empty DEFAULT_REGISTRY in place (tests)."""
-    global _bundle
-    with _bundle_lock:
-        _bundle = None
+    """Drop every bundle and empty DEFAULT_REGISTRY in place (tests)."""
+    with _BUNDLES_LOCK:
+        _BUNDLES.clear()
         DEFAULT_REGISTRY.clear()

@@ -63,7 +63,9 @@ def emit(name: str, kind: str = "event", **fields) -> None:
 # Every name passed to emit() in the port, with the reference's description
 # (tests/test_torch_isolation.py checks both directions).
 SPAN_REGISTRY = {
+    "state.apply_block": "ApplyBlock with validate/finalize/commit/save stage breakdown",
     "crypto.batch_verify": "one batch-verify dispatch: path, n, modeled host/wire/device terms",
     "crypto.commit_partition": "per-curve share of one commit verification",
     "crypto.sched_coalesce": "one shared-scheduler dispatch: n_requests/sigs/tenants/sources/per_tenant_sigs (crypto/sched.py)",
+    "tx.lifecycle": "one stage crossing of a sampled tx (tx/stage/mono; utils/txlife.py — hash-prefix sampled, correlated across nodes by tx)",
 }

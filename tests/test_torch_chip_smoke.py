@@ -202,3 +202,74 @@ def test_verify_stages_run_verify_commit_by_hand(small_commit):
     assert x.result() == (True, [True] * 8)
     out = chip_smoke.stage_split_ms(stages, 2, prepare=commit.invalidate_memos)
     assert out["sum"] > 0
+
+
+# ---- phase 7's helpers (block-sync replay)
+
+
+def test_replay_window_arithmetic():
+    """The phase's counts at 1,000 validators, window 64: 63 last commits
+    and the tip in the first window, 64 and the tip in each later one, all
+    in bucket 65,536; height 2's commit index 777 is lane 1,777 of the bad
+    chain's one window."""
+    lanes = chip_smoke.replay_window_lanes(256, 1_000, 64)
+    assert lanes == [64_000, 65_000, 65_000, 65_000] and sum(lanes) == 259_000
+    assert {E._bucket(n) for n in lanes} == {65_536}
+    assert chip_smoke.replay_window_lanes(6, 1_000, 64) == [6_000]
+    assert E._bucket(6_000) == 10_240 and 6_000 >= E.RLC_MIN
+    assert chip_smoke.replay_bad_lane(2, 777, 1_000, 64) == 1_777
+    assert chip_smoke.replay_window_lanes(8, 4, 3) == [12, 16, 12]
+    assert chip_smoke.expected_replay_outcome("batched", 6, 1_000, 10, 2, 777, 64) == (
+        "ErrInvalidSignature", "invalid signature in window lane 1777", 0)
+    # full mode: the light check of height 2 stops at 667 signatures, before
+    # index 777, and accepts; block 3's validation names it
+    assert chip_smoke.expected_replay_outcome("full", 6, 1_000, 10, 2, 777, 64) == (
+        "BlockValidationError", "invalid last commit: invalid signature at index 777", 2)
+    assert chip_smoke.expected_replay_outcome("full", 6, 1_000, 10, 2, 300, 64) == (
+        "ErrInvalidSignature", "invalid signature at index 300", 1)
+
+
+_BAD_CHAINS = {}
+
+
+def _bad_chain(idx):
+    """A reference chain of 5 blocks x 4 validators whose height-2 commit
+    has the signature at `idx` broken (one per index, made once)."""
+    from cometbft_tpu.utils import factories as RF
+
+    if idx not in _BAD_CHAINS:
+        _BAD_CHAINS[idx] = RF.make_chain(5, n_validators=4, chain_id="bad", backend="cpu",
+                                         corrupt_sig=(2, idx))
+    return _BAD_CHAINS[idx]
+
+
+@pytest.mark.parametrize("mode, window, idx", [
+    ("batched", 64, 3), ("batched", 2, 3), ("batched", 3, 1), ("full", 64, 3), ("full", 64, 1)])
+def test_expected_replay_outcome_matches_the_reference(mode, window, idx):
+    """`expected_replay_outcome` against the reference's replay of a
+    make_chain chain with one broken signature, and the port's replay of
+    the same store (carried as KV items): the same class, message and
+    blocks applied first."""
+    from cometbft_tpu.abci import kvstore as RK
+    from cometbft_tpu.abci.client import AppConns as RAppConns
+    from cometbft_tpu.blocksync import ReplayEngine as RReplayEngine
+    from cometbft_tpu.state.execution import BlockExecutor as RBlockExecutor
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync import ReplayEngine
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.types import State
+    from cometbft_tpu_torch.storage import BlockStore, MemKV
+
+    r_store, _, r_genesis, _ = _bad_chain(idx)
+    want = chip_smoke.expected_replay_outcome(mode, 5, 4, 10, 2, idx, window)
+    r_app = RK.KVStoreApp()
+    r_eng = RReplayEngine(r_store, RBlockExecutor(RAppConns(r_app), backend="cpu"),
+                          verify_mode=mode, window=window, backend="cpu")
+    assert (*chip_smoke.outcome_of(lambda: r_eng.run(r_genesis.copy())), r_app.height) == want
+    kv = MemKV()
+    kv.write_batch(sorted(r_store._db.iterate_prefix(b"")))
+    app = KVStoreApp()
+    eng = ReplayEngine(BlockStore(kv), BlockExecutor(AppConns(app), device="cpu"),
+                       verify_mode=mode, window=window, device="cpu")
+    got = chip_smoke.outcome_of(lambda: eng.run(State.decode(r_genesis.encode())))
+    assert (*got, app.height) == want
