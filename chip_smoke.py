@@ -1374,6 +1374,8 @@ REPLAY_POWER = 10  # make_validator_set's default power
 REPLAY_BAD = (2, 777)  # (height, commit index) of the bad chain's flipped signature
 REPLAY_BAD_BLOCKS = 6
 REPLAY_STAGES = ("load", "queue", "submit", "resolve", "apply")
+REPLAY_CHECK_BAD_LANE = 64_777  # the tampered lane of the checked window (its tip commit)
+REPLAY_RLC_TRIES = 5  # passes of the RLC-pinned leg until the layout accepts a window
 
 
 def replay_window_lanes(n_blocks: int, n_vals: int, window: int) -> list[int]:
@@ -1443,7 +1445,217 @@ def counted_leg(counts: dict, phase: str, leg: str, fn, need=()):
     return res, routes
 
 
-def replay_phase(dev, card, seed: int, kern: dict) -> dict:
+class SubmitTimer:
+    """The replay engine's verify-scheduler seam (`sched=`), used to time
+    each window's submit: it submits the batch itself, as the engine does
+    when it has no scheduler, and adds up the seconds. With `keep`, it
+    keeps the window's batch verifier and verifies nothing instead."""
+
+    def __init__(self, keep: bool = False):
+        self.seconds, self.keep, self.kept = 0.0, keep, None
+
+    def submit(self, bv, tenant: str = "", source: str = ""):
+        from cometbft_tpu_torch.crypto import ed25519 as E
+
+        if self.keep:
+            self.kept = bv
+            return E.DonePending(True, [])
+        t = time.perf_counter()
+        try:
+            return bv.submit()
+        finally:
+            self.seconds += time.perf_counter() - t
+
+
+def replay_window_check(dev, card, store, state, window: int, mul_rate: float) -> dict:
+    """The replay path's kernels held against their plain versions at the
+    shapes one replay window gives them: the second window of make_chain's
+    chain (64 embedded last commits and the tip commit, 65,000 lanes,
+    bucket 65,536), queued by the engine itself.
+
+    - `decompress` and `ladder_sub_mul8` over the whole bucket, as the
+      ladder route launches them, against their plain versions on 1,027
+      lanes spread over it (first and last included), bit for bit after
+      freeze; ragged launches of the live lanes equal to the bucket's; and
+      every live lane's [8](...) the identity;
+    - the RLC layout of that window (`slot_depth` 178 rounds, padded to
+      S = 256): `accum_weight` against its plain version bit for bit after
+      freeze, ragged launches equal to the full one; `region_sum`,
+      `window_combine` and the B = 1 ladder tail on its output, each
+      against its plain version, and the window's verdict true;
+    - a copy of the window with lane 64,777's signature broken, through
+      `submit()` with the RLC seam pinned: the RLC verdict false, and the
+      blame rerun on the ladder names that lane and no other.
+    """
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync import ReplayEngine
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.ops import msm as M
+    from cometbft_tpu_torch.ops import scalar as SC
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.types.block import block_id_for
+
+    keep = SubmitTimer(keep=True)
+    eng = ReplayEngine(store, BlockExecutor(AppConns(KVStoreApp()), device=dev), window=window,
+                       device=dev, sched=keep)
+    blocks = [store.load_block(h) for h in range(window + 1, 2 * window + 1)]
+    eng._queue_window(state.chain_id, state.validators, state.validators,
+                      block_id_for(store.load_block(window)), state.initial_height, blocks)
+    bv = keep.kept
+    n = bv.count()
+    b = E._bucket(n)
+    want_n = replay_window_lanes(2 * window, len(state.validators), window)[1]
+    if n != want_n:
+        raise AssertionError(f"replay window check: {n} lanes queued, want {want_n}")
+    per_lane = products_per_lane(8)
+    out = {"lanes": n, "bucket": b}
+
+    def bound_ms(name, batch, nbytes, products=None):
+        ops_s = wide_muls(products or per_lane[name]) * batch / mul_rate
+        return max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3
+
+    # the ladder route's inputs: R || S || k packed on the host, A's column
+    rsk = bv._pack_rsk(n, b).to(dev)
+    ok_a, neg_a = bv._decompress_pubkeys(n, b)
+    s_dig = SC.digits_from_bytes(rsk[:, 32:64]).contiguous()
+    k_dig = SC.digits_from_bytes(rsk[:, 64:]).contiguous()
+    sign, y = C._split_encoding(rsk[:, :32])
+    sign_row = sign[None, :].contiguous()
+    lanes = torch.linspace(0, b - 1, LADDER_CHECK_LANES, device=dev).round().long()
+    if len(set(lanes.tolist())) != LADDER_CHECK_LANES:
+        raise AssertionError("replay window check: the sampled lanes repeat")
+
+    valid, x, t = K.decompress(y, sign_row)
+    pv, px, pt = C.decompress_plain(y[:, lanes], sign[lanes])
+    mx, ex = frozen_diff(F, x[:, lanes], px)
+    mt, et = frozen_diff(F, t[:, lanes], pt)
+    mism = int(((valid[0, lanes] != 0) != pv).sum()) + mx + mt
+    part = K.decompress(y[:, :n].contiguous(), sign_row[:, :n].contiguous())
+    if not all(torch.equal(g, f[:, :n]) for g, f in zip(part, (valid, x, t))):
+        raise AssertionError(f"decompress: lanes differ between B={n} and B={b} launches")
+    if mism or not bool((valid[0, :n] != 0).all()) or not bool(ok_a[:n].all()):
+        raise AssertionError(f"decompress at B={b}: {mism} of {LADDER_CHECK_LANES} sampled lanes "
+                             "disagree with the plain version, or a live R or A is invalid")
+    out["decompress"] = {"batch": b, "mismatches": mism, "max_abs_err": max(ex, et),
+                         "ms": cuda_ms(lambda: K.decompress(y, sign_row), 10),
+                         "bound_ms": bound_ms("decompress", b, (88 + 4) * b + (4 + 2 * 88) * b)}
+
+    one = F.const(1, dev).expand_as(y)
+    r_pt = (x, y, one, t)
+    a4, r4 = torch.stack(neg_a[:4]), torch.stack(r_pt)
+    base = C.base_niels(dev)
+    sub = K.ladder_sub_mul8(a4, r4, s_dig, k_dig, base)
+    want = C.ladder_sub_mul8_plain(s_dig[:, lanes], k_dig[:, lanes],
+                                   tuple(c[:, lanes] for c in neg_a), tuple(c[:, lanes] for c in r_pt))
+    mism, err = frozen_diff(F, sub[..., lanes], torch.stack(want))
+    part = K.ladder_sub_mul8(a4[..., :n].contiguous(), r4[..., :n].contiguous(),
+                             s_dig[:, :n].contiguous(), k_dig[:, :n].contiguous(), base)
+    if not torch.equal(part, sub[..., :n]):
+        raise AssertionError(f"ladder_sub_mul8: lanes differ between B={n} and B={b} launches")
+    ident = F.is_zero(sub[0, :, :n]) & F.eq(sub[1, :, :n], sub[2, :, :n])
+    if mism or not bool(ident.all()):
+        raise AssertionError(f"ladder_sub_mul8 at B={b}: {mism} of {LADDER_CHECK_LANES} sampled "
+                             f"lanes disagree with the plain version; {int((~ident).sum())} live "
+                             "lanes do not verify")
+    out["ladder_sub_mul8"] = {
+        "batch": b, "mismatches": mism, "max_abs_err": err,
+        "ms": cuda_ms(lambda: K.ladder_sub_mul8(a4, r4, s_dig, k_dig, base), 5),
+        "bound_ms": bound_ms("ladder_sub_mul8", b, (8 * 88 + 2 * 256 + 264) * b
+                             + base.numel() * 4)}
+    del rsk, s_dig, k_dig, y, x, t, valid, a4, r4, sub, part, one, r_pt, neg_a, ok_a
+
+    # the RLC route's inputs: the window's layout, as `_launch_rlc` packs it
+    for tries in range(1, REPLAY_RLC_TRIES + 1):
+        packed = bv._pack_rlc()
+        if packed is not None:
+            break
+    else:
+        raise AssertionError(f"the RLC layout declined the checked window {REPLAY_RLC_TRIES} times")
+    buf, fields, s_pad = packed
+    f = E.unpack_fields(buf.to(dev), fields)
+    gather_idx, gather_neg = M.expand_stream(f["stream"], f["stream_neg"], f["counts"], s_pad)
+    gather_idx = gather_idx.contiguous()
+    neg32 = gather_neg.to(torch.int32).contiguous()
+    _, a_pt = C.decompress(f["a"])
+    _, r_pt = C.decompress(f["r"])
+    niels = tuple(torch.cat([r_c, a_c, i_c], dim=1).contiguous() for r_c, a_c, i_c in zip(
+        C.to_niels(r_pt)[:3], C.to_niels(a_pt)[:3], M._identity_niels(1, dev)))
+    weights = f["weights"].reshape(-1).to(torch.int32).contiguous()
+    got = K.accum_weight(niels, gather_idx, neg32, weights)
+    mism, err = frozen_diff(F, got, M.accumulate_weighted_plain(niels, gather_idx, gather_neg,
+                                                                weights))
+    for m in RAGGED_LANES:
+        part = K.accum_weight(niels, gather_idx[:, :m].contiguous(), neg32[:, :m].contiguous(),
+                              weights[:m].contiguous())
+        if not torch.equal(part, got[..., :m]):
+            raise AssertionError(f"accum_weight at S={s_pad}: lanes differ between WK={m} and "
+                                 f"WK={M.WK} launches")
+    if mism:
+        raise AssertionError(f"accum_weight at S={s_pad}: {mism} lanes disagree with the plain "
+                             "version")
+    n_pts = niels[0].shape[1]
+    out["accum_weight"] = {
+        "batch": M.WK, "s_pad": s_pad, "points": n_pts, "layout_tries": tries,
+        "mismatches": mism, "max_abs_err": err,
+        "ms": cuda_ms(lambda: K.accum_weight(niels, gather_idx, neg32, weights), 10),
+        "bound_ms": bound_ms("accum_weight", M.WK, 3 * 88 * n_pts + 2 * 4 * s_pad * M.WK
+                             + 4 * M.WK + 4 * 88 * M.WK,
+                             products_per_lane(s_pad)["accum_weight"])}
+    sums = K.region_sum(got)
+    m_sum, _ = frozen_diff(F, sums, M.region_tree_sum_plain(got))
+    msm = K.window_combine(sums.contiguous())
+    m_msm, _ = frozen_diff(F, msm, M.window_combine_plain(sums))
+    c_dig = f["c_digits"].contiguous()
+    tail_args = (c_dig, torch.zeros_like(c_dig), C.identity(1, dev), C.neg(msm))
+    tail = torch.stack(C.ladder_sub_mul8(*tail_args))
+    m_tail, _ = frozen_diff(F, tail, torch.stack(C.ladder_sub_mul8_plain(*tail_args)))
+    if m_sum or m_msm or m_tail:
+        raise AssertionError(f"the RLC tail of the checked window disagrees with the plain "
+                             f"versions: region_sum {m_sum}, window_combine {m_msm}, ladder at "
+                             f"B = 1 {m_tail}")
+    if not bool(F.is_zero(tail[0])[0] & F.eq(tail[1], tail[2])[0]):
+        raise AssertionError("the checked window's [8](msm + [c]B) is not the identity")
+    del f, buf, gather_idx, gather_neg, neg32, niels, weights, got, sums, msm, tail
+
+    # the tampered copy: the RLC verdict false, the blame names the lane
+    bad = E.Ed25519BatchVerifier(dev)
+    bad.absorb(bv)
+    bad._sig_buf[64 * REPLAY_CHECK_BAD_LANE] ^= 1
+    prev = E._rlc_beats_ladder
+    E._rlc_beats_ladder = lambda n_, b_, device: True
+    try:
+        for submits in range(1, REPLAY_RLC_TRIES + 1):
+            pending = bad.submit()
+            if pending._path == "rlc":
+                break
+        else:
+            raise AssertionError(f"the RLC layout declined the tampered window "
+                                 f"{REPLAY_RLC_TRIES} times")
+    finally:
+        E._rlc_beats_ladder = prev
+    if bool(pending._all_ok.item()):
+        raise AssertionError("the tampered window: the RLC all-ok scalar is not false")
+    ok, bits = pending.result()
+    wrong = [i for i, v in enumerate(bits) if not v]
+    if ok or wrong != [REPLAY_CHECK_BAD_LANE] or len(bits) != n:
+        raise AssertionError(f"the tampered window: blame names lanes {wrong[:20]}, want "
+                             f"[{REPLAY_CHECK_BAD_LANE}]")
+    out["tampered"] = {"lane": REPLAY_CHECK_BAD_LANE, "submits": submits}
+    log(f"replay window check, {n} lanes at bucket {b}: decompress and ladder_sub_mul8 exact on "
+        f"{LADDER_CHECK_LANES} lanes against the plain versions, ragged B={n} launches equal, "
+        f"every live lane verifies; accum_weight at S={s_pad} ({n_pts} points, layout accepted "
+        f"on try {tries}) exact, ragged {RAGGED_LANES} equal; region_sum, window_combine and "
+        f"the B = 1 tail exact, verdict true; lane {REPLAY_CHECK_BAD_LANE} broken: RLC false, "
+        f"blame names it alone. Times ms (bound): " + ", ".join(
+            f"{k} {out[k]['ms']:.4f} ({out[k]['bound_ms']:.4f})"
+            for k in ("decompress", "ladder_sub_mul8", "accum_weight")) + f" [{card}]")
+    return out
+
+
+def replay_phase(dev, card, seed: int, kern: dict, mul_rate: float) -> dict:
     """Phase 7: block-sync replay on the card through its entry points:
     `utils/factories.py::make_chain` makes a signed chain, and
     `blocksync.ReplayEngine(store, BlockExecutor(AppConns(KVStoreApp())))`
@@ -1470,6 +1682,12 @@ def replay_phase(dev, card, seed: int, kern: dict) -> dict:
     want_lanes = replay_window_lanes(REPLAY_BLOCKS, n, window)
     want_sigs = sum(want_lanes)
 
+    # the kernels at one window's shapes, against their plain versions
+    t0 = time.perf_counter()
+    out["window_check"] = replay_window_check(dev, card, store, genesis, window, mul_rate)
+    out["window_check"]["seconds"] = time.perf_counter() - t0
+    log(f"replay window check: {out['window_check']['seconds']:.2f} s")
+
     class Timed(ReplayEngine):
         """The engine with its stages timed and each window's lanes, route
         and bucket recorded (nothing of the engine changed)."""
@@ -1487,9 +1705,9 @@ def replay_phase(dev, card, seed: int, kern: dict) -> dict:
                 self.t["load"] += time.perf_counter() - t
 
         def _queue_window(self, *a):
-            t, s = time.perf_counter(), submit_s[0]
+            t, s = time.perf_counter(), self.sched.seconds
             handle = super()._queue_window(*a)
-            sub = submit_s[0] - s
+            sub = self.sched.seconds - s
             self.t["submit"] += sub
             self.t["queue"] += time.perf_counter() - t - sub
             self.windows.append((handle[2], getattr(handle[0], "_path", "none"),
@@ -1511,20 +1729,10 @@ def replay_phase(dev, card, seed: int, kern: dict) -> dict:
             finally:
                 self.t_apply += time.perf_counter() - t
 
-    submit_s = [0.0]
-    real_submit = E.Ed25519BatchVerifier.submit
-
-    def timed_submit(self):
-        t = time.perf_counter()
-        try:
-            return real_submit(self)
-        finally:
-            submit_s[0] += time.perf_counter() - t
-
-    def engine(store_, mode, **kw):
+    def engine(store_, mode):
         ex = TimedExecutor(AppConns(KVStoreApp()), device=dev)
         ex.t_apply = 0.0
-        return Timed(store_, ex, verify_mode=mode, window=window, device=dev, **kw)
+        return Timed(store_, ex, verify_mode=mode, window=window, device=dev, sched=SubmitTimer())
 
     def replay(mode, store_=None, state0=None):
         eng = engine(store_ or store, mode)
@@ -1546,14 +1754,11 @@ def replay_phase(dev, card, seed: int, kern: dict) -> dict:
         prev = E._rlc_beats_ladder
         if seam is not None:
             E._rlc_beats_ladder = lambda n_, b, device: seam
-        E.Ed25519BatchVerifier.submit = timed_submit
-        submit_s[0] = 0.0
         try:
             (eng, state, stats, wall), routes = counted_leg(
                 counts, "replay", what, lambda: replay("batched"), need=need)
         finally:
             E._rlc_beats_ladder = prev
-            E.Ed25519BatchVerifier.submit = real_submit
         check_final(what, state, stats, want_sigs)
         lanes = [w[0] for w in eng.windows]
         if lanes != want_lanes or {w[2] for w in eng.windows} != {E._bucket(max(want_lanes))}:
@@ -1598,10 +1803,22 @@ def replay_phase(dev, card, seed: int, kern: dict) -> dict:
             any(w[1] != "ladder" for w in out["ladder"]["windows"]):
         raise AssertionError(f"replay, ladder pinned: windows {out['ladder']['windows']}, "
                              f"launches {c}")
-    out["rlc"] = batched("rlc", seam=True)
+    # the RLC seam pinned: a pass counts once the layout took a window (a
+    # declined window goes to the ladder); the pass is run again until then
+    for passes in range(1, REPLAY_RLC_TRIES + 1):
+        out["rlc"] = batched("rlc", seam=True)
+        accepted = sum(1 for w in out["rlc"]["windows"] if w[1] == "rlc")
+        if accepted:
+            break
+        log(f"replay, RLC pinned: the layout declined all {nw} windows (pass {passes})")
+    else:
+        raise AssertionError(f"replay, RLC pinned: the layout declined every window in "
+                             f"{REPLAY_RLC_TRIES} passes")
     c = counts["rlc"]
-    accepted = sum(1 for w in out["rlc"]["windows"] if w[1] == "rlc")
+    out["rlc_passes"] = passes
     out["rlc_declines"] = nw - accepted
+    if not c["accum_weight"]:
+        raise AssertionError("replay, RLC pinned: accum_weight was never launched")
     for name in ("accum_weight", "region_sum", "window_combine"):
         if c[name] != accepted:
             raise AssertionError(f"replay, RLC pinned: {accepted} windows took RLC, {name} "
@@ -2315,7 +2532,7 @@ def main(argv=None) -> int:
     consumers = consumers_phase(dev, card, args.seed, kern)
 
     # ---- phase 7: block-sync replay
-    replay = replay_phase(dev, card, args.seed, kern)
+    replay = replay_phase(dev, card, args.seed, kern, mul_rate)
 
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,

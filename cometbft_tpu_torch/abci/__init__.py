@@ -6,8 +6,9 @@ VerifyVoteExtension/Commit (consensus); ListSnapshots/OfferSnapshot/
 LoadSnapshotChunk/ApplySnapshotChunk (state sync).
 
 Twin of `cometbft_tpu/abci/` for the in-process path: the types, the
-wire encodings, the local client and the kvstore app. The socket and
-gRPC transports and the tx grammar are not here yet.
+FinalizeBlock response's wire encoding, the local client and the kvstore
+app. The socket and gRPC transports (with the rest of the wire codecs)
+and the tx grammar are not here yet.
 """
 
 from .types import (  # noqa: F401

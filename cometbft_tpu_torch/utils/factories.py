@@ -173,16 +173,11 @@ def make_chain(
     chain_id: str = "replay-chain",
     txs_per_block: int = 2,
     app=None,
-    block_store=None,
     seed: int = 0,
     device="cuda",
     nil_votes: dict[int, set[int]] | None = None,
     corrupt_sig: tuple[int, int] | None = None,
-    verify_last_commit: bool = True,
     r_pool: "RPool | None" = None,
-    start_state=None,
-    start_commit: Commit | None = None,
-    start_height: int = 1,
 ):
     """Generate a fully-valid signed chain by actually running the executor.
 
@@ -198,13 +193,7 @@ def make_chain(
     generation is elided for such chains — they exist to test that replay
     REJECTS them).
 
-    verify_last_commit=False skips LastCommit verification during
-    generation: the commits are signed here and known-valid, and the
-    REPLAY of the generated store is where verification is measured.
     r_pool amortizes the device nonce-point launches over many blocks.
-    start_state/start_commit/start_height continue a chain from a prior
-    make_chain call's (state, last_commit) so arbitrarily long chains
-    build in bounded-memory chunks into one shared block_store.
     """
     from ..abci.client import AppConns
     from ..abci.kvstore import KVStoreApp
@@ -217,13 +206,13 @@ def make_chain(
     vals = make_validator_set(signers)
     by_addr = {s.address(): s for s in signers}
     app = app or KVStoreApp()
-    store = block_store or BlockStore(MemKV())
+    store = BlockStore(MemKV())
     executor = BlockExecutor(AppConns(app), device=device)
     genesis = make_genesis_state(chain_id, vals)
-    state = start_state if start_state is not None else genesis.copy()
+    state = genesis.copy()
 
-    last_commit = start_commit if start_commit is not None else Commit()
-    for h in range(start_height, start_height + n_blocks):
+    last_commit = Commit()
+    for h in range(1, n_blocks + 1):
         txs = [b"k%d-%d=v%d" % (h, i, i) for i in range(txs_per_block)]
         proposer = state.validators.get_proposer()
         block = executor.create_proposal_block(
@@ -234,9 +223,7 @@ def make_chain(
         vals_h = state.validators  # the set that signs height h's commit
         state = executor.apply_block(
             state, bid, block,
-            last_commit_preverified=(
-                corrupt_sig is not None or not verify_last_commit
-            ),
+            last_commit_preverified=corrupt_sig is not None,
         )
         commit = make_commit(
             chain_id, h, 0, bid, vals_h, by_addr,

@@ -9,12 +9,12 @@ backends' metrics line up:
   shared scheduler (`batch_size`, `path_selected_total` and
   `verify_seconds` by path and curve, `calibration_us_per_sig`,
   `sched_queue_depth`, `sched_coalesced_total`, `sched_batch_sigs`);
-- `StateMetrics` (`state/execution.py`), `StoreMetrics`
-  (`storage/blockstore.py`) and `BlockSyncMetrics` (the block-sync
-  gauges and counters; the port's replay loop records none of them, as
-  the reference's does not outside its certificate branch);
-- of `ConsensusMetrics` and `MempoolMetrics`, only the tx-lifecycle
-  histograms that `utils/txlife.py` feeds.
+- `StateMetrics` (`state/execution.py`) and `StoreMetrics`
+  (`storage/blockstore.py`);
+- of `ConsensusMetrics`, only the tx-lifecycle stage histogram that
+  `utils/txlife.py` feeds from `apply_block`'s stamps. The block-sync
+  bundle, the mempool's stage histogram and the arrival->commit
+  histogram come with the reactor and mempool slices that record them.
 
 `crypto_metrics()`, `state_metrics()`, ... hand out the process's bundle
 against `DEFAULT_REGISTRY`; `reset_bundles()` clears them all (tests).
@@ -141,37 +141,17 @@ TX_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
 
 
 class ConsensusMetrics:
-    """The tx-lifecycle part of the reference's bundle (the rest waits
-    for the consensus slice)."""
+    """The tx-lifecycle stage histogram of the reference's bundle (the
+    rest waits for the consensus slice)."""
 
     def __init__(self, reg: Registry | None = None):
         reg = reg or DEFAULT_REGISTRY
         # tx lifecycle observatory (utils/txlife.py): consensus-side
-        # waterfall stages + the end-to-end arrival->commit latency,
-        # bucket exemplars carrying sampled tx hashes
+        # waterfall stages, bucket exemplars carrying sampled tx hashes
         self.tx_stage_seconds = reg.histogram(
             "consensus", "tx_stage_seconds",
             "Per-tx lifecycle stage latency, consensus-side stages "
             "(proposal_wait/consensus/apply/notify); sampled txs only",
-            labels=("stage",), buckets=TX_STAGE_BUCKETS)
-        self.tx_commit_seconds = reg.histogram(
-            "consensus", "tx_commit_seconds",
-            "Per-tx end-to-end arrival->commit latency; sampled txs only",
-            buckets=TX_STAGE_BUCKETS)
-
-
-class MempoolMetrics:
-    """The tx-lifecycle part of the reference's bundle (the rest waits
-    for the mempool slice)."""
-
-    def __init__(self, reg: Registry | None = None):
-        reg = reg or DEFAULT_REGISTRY
-        # tx lifecycle observatory (utils/txlife.py): mempool-side
-        # waterfall stages, bucket exemplars carrying sampled tx hashes
-        self.tx_stage_seconds = reg.histogram(
-            "mempool", "tx_stage_seconds",
-            "Per-tx lifecycle stage latency, mempool-side stages "
-            "(admit_wait/verify/app_check); sampled txs only",
             labels=("stage",), buckets=TX_STAGE_BUCKETS)
 
 
@@ -198,34 +178,6 @@ class StoreMetrics:
             "Encoded canonical-commit bytes written per block "
             "(certificate-native BLS heights shrink this ~N/1)",
             buckets=StoreMetrics.COMMIT_BUCKETS)
-
-
-class BlockSyncMetrics:
-    def __init__(self, reg: Registry | None = None):
-        reg = reg or DEFAULT_REGISTRY
-        self.syncing = reg.gauge("blocksync", "syncing",
-                                 "1 while block sync is running")
-        self.latest_block_height = reg.gauge(
-            "blocksync", "latest_block_height",
-            "Highest height applied by block sync")
-        self.num_peers = reg.gauge("blocksync", "num_peers",
-                                   "Peers in the block pool")
-        self.pending_requests = reg.gauge(
-            "blocksync", "pending_requests",
-            "In-flight block requests without a block yet")
-        self.peer_height = reg.gauge(
-            "blocksync", "peer_height",
-            "Reported chain height per pool peer", labels=("peer",))
-        self.blocks_applied_total = reg.counter(
-            "blocksync", "blocks_applied_total",
-            "Blocks verified and applied by block sync")
-        self.bad_blocks_total = reg.counter(
-            "blocksync", "bad_blocks_total",
-            "Blocks that failed verification (request redone)")
-        self.cert_verify_seconds = reg.histogram(
-            "blocksync", "cert_verify_seconds",
-            "Certificate (one-pairing) commit verification wall time "
-            "during replay, per commit", buckets=TX_STAGE_BUCKETS)
 
 
 class CryptoMetrics:
@@ -276,16 +228,8 @@ def consensus_metrics() -> ConsensusMetrics:
     return _bundle("consensus", ConsensusMetrics)
 
 
-def mempool_metrics() -> MempoolMetrics:
-    return _bundle("mempool", MempoolMetrics)
-
-
 def state_metrics() -> StateMetrics:
     return _bundle("state", StateMetrics)
-
-
-def blocksync_metrics() -> BlockSyncMetrics:
-    return _bundle("blocksync", BlockSyncMetrics)
 
 
 def store_metrics() -> StoreMetrics:

@@ -32,7 +32,7 @@ Two consumers ride on the stamps:
 * trace records (``tx.lifecycle`` events in the JSONL sink) feeding
   utils/traceview.py + tools/latency_analyze.py — the stage waterfall
   that decomposes p50/p99 commit latency;
-* per-stage Prometheus histograms (mempool/consensus bundles) observed
+* the per-stage Prometheus histogram of the consensus bundle, observed
   on the fly, with the tx hash attached as an exemplar so a p99 bucket
   links back to a concrete trace.
 
@@ -49,8 +49,10 @@ or the ``COMETBFT_TPU_TXLIFE`` env var (wins over config; picked up at
 import by subprocess nodes). 0 disables the tracker entirely. As in the
 reference, the tracker starts enabled at 1 in DEFAULT_RATE. The port's
 only stamp sites so far are `state/execution.py::apply_block`'s apply,
-commit and notify; the reference's arrival-site helpers (`track`,
-`key_of`, `sampled`) and its stage lists come with the mempool.
+commit and notify. The reference's arrival-site helpers (`track`,
+`key_of`, `sampled`), its mempool-side waterfall rows (admit_wait,
+verify, app_check) with their histogram, and the arrival->commit
+histogram come with the mempool, whose stamps feed them.
 """
 
 from __future__ import annotations
@@ -62,25 +64,20 @@ import time
 from collections import OrderedDict
 
 from . import trace as _trace
-from .metrics import consensus_metrics, mempool_metrics
+from .metrics import consensus_metrics
 
 DEFAULT_RATE = 64
 
-# (waterfall label, start stages in preference order, end stage).
-# app_check spans verify_end->insert (the app round plus the µs-scale
-# locked insert); apply spans precommit_quorum->commit (validate +
-# FinalizeBlock + Commit).
+# (waterfall label, start stages in preference order, end stage): the
+# reference's consensus-side rows. apply spans precommit_quorum->commit
+# (validate + FinalizeBlock + Commit).
 WATERFALL = (
-    ("admit_wait",    ("arrival", "enqueue"), "verify_start"),
-    ("verify",        ("verify_start",),      "verify_end"),
-    ("app_check",     ("verify_end",),        "insert"),
     ("proposal_wait", ("insert",),            "reap"),
     ("consensus",     ("reap",),              "precommit_quorum"),
     ("apply",         ("precommit_quorum",),  "commit"),
     ("notify",        ("commit",),            "notify"),
 )
 _BY_END = {end: (label, starts) for label, starts, end in WATERFALL}
-_MEMPOOL_LABELS = frozenset(("admit_wait", "verify", "app_check"))
 
 # Live per-tx stage maps, LRU-capped: txs that never commit (rejected,
 # evicted, node behind) must not grow memory without bound.
@@ -141,14 +138,13 @@ def stage_block(pairs, stage: str, **fields) -> None:
 
 def stage_key(key: bytes, stage: str, **fields) -> None:
     """Stamp `stage` for a tx key (first stamp per stage wins). Feeds
-    the per-stage histograms and emits one tx.lifecycle trace record."""
+    the per-stage histogram and emits one tx.lifecycle trace record."""
     if not enabled or key is None:
         return
     if int.from_bytes(key[:4], "big") >= _threshold32:
         return
     now = time.perf_counter()
     delta = label = None
-    e2e = None
     with _lock:
         st = _live.get(key)
         if st is None:
@@ -168,22 +164,11 @@ def stage_key(key: bytes, stage: str, **fields) -> None:
                 if t0 is not None:
                     delta = now - t0
                     break
-        if stage == "commit":
-            t0 = st.get("arrival")
-            if t0 is not None:
-                e2e = now - t0
         if stage == "notify":
             _live.pop(key, None)
     txhex = key.hex()[:16]
     if delta is not None:
-        if label in _MEMPOOL_LABELS:
-            mempool_metrics().tx_stage_seconds.observe(
-                delta, label, exemplar=txhex)
-        else:
-            consensus_metrics().tx_stage_seconds.observe(
-                delta, label, exemplar=txhex)
-    if e2e is not None:
-        consensus_metrics().tx_commit_seconds.observe(e2e, exemplar=txhex)
+        consensus_metrics().tx_stage_seconds.observe(delta, label, exemplar=txhex)
     if _trace.enabled:
         _trace.emit("tx.lifecycle", "event", tx=txhex, stage=stage,
                     mono=round(now, 6), **fields)

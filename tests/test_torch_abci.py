@@ -3,8 +3,8 @@
 `KVStoreApp` of both packages runs the same blocks of txs (valid,
 malformed, `val:` validator updates, a snapshot interval): the same
 `enc_finalize_resp` bytes, app hashes, query answers and snapshots. The
-wire encodings of both packages give the same bytes for the same
-messages, and each decodes its own bytes back to the message.
+FinalizeBlock response's wire encoding gives the reference's bytes for
+the same response, and decodes its own bytes back to the response.
 """
 
 from __future__ import annotations
@@ -94,55 +94,41 @@ def test_snapshot_restores_into_the_port_from_reference_chunks():
     assert (app.height, app.app_hash, app.store) == (rk_app.height, rk_app.app_hash, rk_app.store)
 
 
-def _messages(t, ts):
-    """The same message of each wire type, built from the module `t`."""
-    vu = [t.ValidatorUpdate(b"\x01" * 32, "ed25519", 5), t.ValidatorUpdate(b"\x02" * 33, "secp256k1", 0)]
+def _finalize_resps(t):
+    """The same FinalizeBlock responses, one of each shape, built from the
+    module `t`."""
+    vu = [t.ValidatorUpdate(b"\x01" * 32, "ed25519", 5),
+          t.ValidatorUpdate(b"\x02" * 33, "secp256k1", 0)]
     return {
-        "finalize_req": t.FinalizeBlockRequest(
-            txs=[b"a=1", b"", b"z" * 300],
-            decided_last_commit=t.CommitInfo(round=2, votes=[(b"\x03" * 20, 10, True),
-                                                           (b"\x04" * 20, 7, False)]),
-            misbehavior=[t.Misbehavior(1, b"\x05" * 20, 9, 4, ts(1_700_000_000, 9), 40)],
-            hash=b"\x06" * 32, height=12, time=ts(1_700_000_123, 456),
-            next_validators_hash=b"\x07" * 32, proposer_address=b"\x08" * 20),
-        "finalize_resp": t.FinalizeBlockResponse(
+        "empty": t.FinalizeBlockResponse(),
+        "results": t.FinalizeBlockResponse(
             tx_results=[t.ExecTxResult(data=b"v"), t.ExecTxResult(code=1, log="malformed tx"),
                         t.ExecTxResult(gas_wanted=5, gas_used=3)],
             validator_updates=vu, app_hash=b"\x09" * 32),
-        "info_resp": t.InfoResponse("kvstore", "0.1.0", 3, 17, b"\x0a" * 32),
-        "check_tx_resp": t.CheckTxResult(code=1, data=b"d", log="tx must be key=value",
-                                         gas_wanted=2),
-        "query_resp": t.QueryResponse(code=1, key=b"k", value=b"", height=9, log="x"),
-        "init_chain_req": t.InitChainRequest(ts(1_600_000_000, 1), "chain-x", vu, b"{}", 5),
-        "init_chain_resp": t.InitChainResponse(vu[:1], b"\x0b" * 32),
+        "updates_only": t.FinalizeBlockResponse(validator_updates=vu[:1], app_hash=b"\x0a" * 32),
+        "removal": t.FinalizeBlockResponse(
+            validator_updates=[t.ValidatorUpdate(b"\x03" * 32, "ed25519", 0)]),
+        "unicode_log": t.FinalizeBlockResponse(
+            tx_results=[t.ExecTxResult(code=2, log="clé ✓ 鍵", data=b"\x00\xff")]),
+        "wide_values": t.FinalizeBlockResponse(
+            tx_results=[t.ExecTxResult(code=2**32 - 1, data=b"\x00" * 1000,
+                                       gas_wanted=2**62, gas_used=2**63 - 1)],
+            validator_updates=[t.ValidatorUpdate(b"\x04" * 32, "ed25519", 2**60)]),
+        "many": t.FinalizeBlockResponse(
+            tx_results=[t.ExecTxResult(code=i % 3, data=bytes([i % 256]) * (i % 7))
+                        for i in range(300)], app_hash=b"\x0b" * 32),
     }
 
 
-@pytest.mark.parametrize("kind", ["finalize_req", "finalize_resp", "info_resp", "check_tx_resp",
-                                  "query_resp", "init_chain_req", "init_chain_resp"])
-def test_wire_matches_reference_and_round_trips(kind):
-    msg = _messages(T, Timestamp)[kind]
-    r_msg = _messages(RT, RTimestamp)[kind]
-    enc = getattr(W, f"enc_{kind}")(msg)
-    assert enc == getattr(RW, f"enc_{kind}")(r_msg)
-    assert getattr(W, f"dec_{kind}")(enc) == msg
-
-
-def test_wire_frames_and_query_requests_round_trip():
-    payload = W.enc_query_req("/key", b"abc", 7)
-    assert payload == RW.enc_query_req("/key", b"abc", 7)
-    assert W.dec_query_req(payload) == ("/key", b"abc", 7)
-    framed = W.frame(W.QUERY, payload) + W.frame(W.FLUSH, b"")
-    assert framed == RW.frame(RW.QUERY, payload) + RW.frame(RW.FLUSH, b"")
-    pos = [0]
-
-    def read_exact(n):
-        pos[0] += n
-        return framed[pos[0] - n:pos[0]]
-
-    assert W.read_frame(read_exact) == (W.QUERY, payload)
-    assert W.read_frame(read_exact) == (W.FLUSH, b"")
-    assert W.dec_tx_list(W.enc_tx_list([b"", b"x"])) == [b"", b"x"]
+@pytest.mark.parametrize("kind", ["empty", "results", "updates_only", "removal", "unicode_log",
+                                  "wide_values", "many"])
+def test_finalize_resp_wire_matches_reference_and_round_trips(kind):
+    """The bytes `apply_block` stores for a block's ABCI responses are the
+    reference's, and decode back to the response."""
+    msg = _finalize_resps(T)[kind]
+    enc = W.enc_finalize_resp(msg)
+    assert enc == RW.enc_finalize_resp(_finalize_resps(RT)[kind])
+    assert W.dec_finalize_resp(enc) == msg
 
 
 def test_app_conns_share_one_lock():

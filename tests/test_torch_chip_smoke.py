@@ -273,3 +273,36 @@ def test_expected_replay_outcome_matches_the_reference(mode, window, idx):
                        verify_mode=mode, window=window, device="cpu")
     got = chip_smoke.outcome_of(lambda: eng.run(State.decode(r_genesis.encode())))
     assert (*got, app.height) == want
+
+
+def test_submit_timer_keeps_the_window_or_submits_it():
+    """The smoke run's stand-in for the engine's verify scheduler: with
+    `keep` it holds the window's verifier (every lane of the window's
+    commits) and verifies nothing; without, it submits the verifier as the
+    engine does with no scheduler, so the replay's outcome is the same,
+    and it adds up the seconds."""
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync import ReplayEngine
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.types import State
+    from cometbft_tpu_torch.storage import BlockStore, MemKV
+
+    r_store, _, r_genesis, _ = _bad_chain(3)
+    kv = MemKV()
+    kv.write_batch(sorted(r_store._db.iterate_prefix(b"")))
+    store, state = BlockStore(kv), State.decode(r_genesis.encode())
+    keep = chip_smoke.SubmitTimer(keep=True)
+    eng = ReplayEngine(store, BlockExecutor(AppConns(KVStoreApp()), device="cpu"), window=64,
+                       device="cpu", sched=keep)
+    pending, _, lanes = eng._queue_window(
+        state.chain_id, state.validators, state.last_validators, state.last_block_id,
+        state.initial_height, [store.load_block(h) for h in range(1, 6)])
+    assert lanes == keep.kept.count() == chip_smoke.replay_window_lanes(5, 4, 64)[0] == 20
+    assert pending.result() == (True, []) and keep.seconds == 0
+    timer = chip_smoke.SubmitTimer()
+    app = KVStoreApp()
+    eng = ReplayEngine(store, BlockExecutor(AppConns(app), device="cpu"), window=64,
+                       device="cpu", sched=timer)
+    got = chip_smoke.outcome_of(lambda: eng.run(state.copy()))
+    assert (*got, app.height) == chip_smoke.expected_replay_outcome("batched", 5, 4, 10, 2, 3, 64)
+    assert timer.seconds > 0

@@ -329,8 +329,8 @@ def test_fail_point_dies_at_the_configured_call(monkeypatch):
     fail.reset()
 
 
-@pytest.mark.parametrize("bundle", ["StateMetrics", "StoreMetrics", "BlockSyncMetrics",
-                                    "ConsensusMetrics", "MempoolMetrics", "CryptoMetrics"])
+@pytest.mark.parametrize("bundle", ["StateMetrics", "StoreMetrics", "ConsensusMetrics",
+                                    "CryptoMetrics"])
 def test_metric_bundles_line_up_with_the_reference(bundle):
     """Each metric of the port's bundles is the reference's same-named
     metric: its full name, kind, labels and buckets."""
@@ -360,3 +360,24 @@ def test_histogram_exemplars_as_the_reference():
     assert {k: {i: v[:2] for i, v in e.items()} for k, e in h.exemplars().items()} == \
         {k: {i: v[:2] for i, v in e.items()} for k, e in r.exemplars().items()} == \
         {(): {0: ("aa", 0.5), 2: ("bb", 9)}}
+
+
+@pytest.mark.parametrize("rate", [0, 1, 2, 7, 64])
+def test_txlife_samples_the_reference_txs(rate):
+    """At each sampling rate (0 off, 1 in N otherwise) the port samples the
+    same txs of a block as the reference, so both backends' lifecycle
+    records follow the same transactions."""
+    from cometbft_tpu.utils import txlife as RL
+
+    txs = [b"k%d=v%d" % (i, i * 7) for i in range(512)]
+    try:
+        txlife.configure(rate)
+        RL.configure(rate)
+        got = txlife.sampled_keys(txs)
+        assert got == RL.sampled_keys(txs)
+        assert txlife.enabled == bool(rate) and len(got) <= len(txs)
+        if rate == 1:
+            assert len(got) == len(txs)
+    finally:
+        txlife.reset()
+        RL.reset()
