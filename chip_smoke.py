@@ -167,13 +167,62 @@ and never prints its last line):
    must raise as `expected_replay_outcome` says (the light check of
    height 2 stops before index 777; block 3's validation names it).
    `results.json` key `replay`;
-8. one JSON line `{"kernels": [...]}` with each kernel's launches,
+8. the mempool, evidence and the light client (`mempool/`,
+   `evidence/`, `types/evidence.py`, `light/client.py`) through their
+   entry points at the reference's MempoolConfig (size 5,000, cache
+   10,000, window 256, 2 ms, signatures verified) and SchedConfig
+   (16,384 signatures, 2 ms), each leg with the launch counts set to 0
+   just before it and read right after; signed STX txs of 1,000 senders
+   made on the card (`utils/factories.py::signed_txs`: `fe_mul`,
+   `fe_sq`), and every tx's outcome (admitted, or the class and
+   message) equal to `expected_ingest_outcome` (held against the
+   reference on the CPU):
+   - (a) one node, one `AdmissionPipeline` on the shared scheduler: 4,096
+     txs with a broken signature, a signed payload the app rejects, an
+     envelope cut short, a duplicate, an oversize tx and a second write of
+     one key planted, then 1,000 more past the pool's 5,000
+     (ErrMempoolFull); the windows' routes and the `mempool.admit_window`
+     spans' sizes and stage milliseconds are logged;
+   - (b) sixteen tenants (chain ids, apps, mempools, pipelines) on one
+     scheduler, a producer thread each, 8,192 txs a tenant in two rounds
+     with a reap and update between, one broken signature a tenant that
+     must come back to that tenant alone; the leg counts once a coalesced
+     dispatch took the ladder or RLC (run again up to 3 times); logged:
+     the coalesced batch sizes, routes, dispatches per 1,000 signatures,
+     dispatch time by route, admitted txs/s per tenant and in all;
+   - (c) one node at `admission_window` 4,096 (and a 1 s delay, so one
+     producer fills it): 16,384 txs in four full windows, each of which
+     must take the ladder or RLC and launch `decompress` and the ladder,
+     one broken signature a window named exactly;
+   - (d) 8 blocks of a 150-validator chain from (a)'s mempool (block
+     max_bytes 88,000, so that the pool drains over the 8 blocks): reaped
+     under the state's consensus parameters, proposed by
+     `create_proposal_block` with the `EvidencePool`'s pending evidence,
+     committed by `make_commit` on the card and applied by `apply_block`
+     with the mempool and the pool attached; a DuplicateVoteEvidence from
+     two precommits reported after block 3 is proposed in block 5 alone,
+     the app sees the misbehavior, the pool has nothing pending after;
+     committed txs left the pool and are refused again, the recheck drops
+     the second write of a committed key, the evidence block round-trips
+     through `BlockStore`, and the final state bytes equal
+     `expected_blocks_state` (the same bytes re-applied on the host, held
+     against the reference on the CPU);
+   - (e) `LightClient` on phase 7's chain (its stores, not made again)
+     behind a `StoreProvider`: `initialize(1)` and a skip to 256 with an
+     agreeing witness (heights {1, 256}); then a witness on a 16-block
+     fork (`make_chain`, the same seed, three txs a block): verifying to
+     12 raises ErrConflictingHeaders, whose LightClientAttackEvidence
+     names all 1,000 signers, round-trips, and reaches the witness with
+     the primary-direction evidence, as `expected_light_outcome` says;
+     each verify's routes are logged;
+   `results.json` key `ingest`;
+9. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-9. the card's name and power limit, then the last line
+10. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -1903,10 +1952,750 @@ def replay_phase(dev, card, seed: int, kern: dict, mul_rate: float) -> dict:
         f" no block applied; full -> {got} after {applied} blocks [{card}]")
 
     out["counts"] = counts
+    out["chain"] = (store, final)  # phase 8's light client reads it; not written out
     for name in SOURCES:
         kern[name]["launches_by_route"]["replay"] = sum(c[name] for c in counts.values())
         kern[name]["launches"] += kern[name]["launches_by_route"]["replay"]
     return out
+
+
+# ---- phase 8: ingest, blocks with the mempool and evidence, the light client
+
+INGEST_CHAIN = "ingest-chain"
+INGEST_SENDERS = 1_000
+INGEST_TXS = 4_096  # (a)'s signed stream, planted classes included
+INGEST_FILL = 1_000  # more signed txs after it, past the mempool's size
+MEMPOOL_SIZE = 5_000  # MempoolConfig (size, cache, tx bytes, window, delay)
+MEMPOOL_CACHE = 10_000
+MAX_TX_BYTES = 1_048_576
+ADMISSION_WINDOW = 256
+ADMISSION_DELAY_S = 0.002
+SCHED_SIGS = 16_384  # SchedConfig (max_coalesce_sigs, max_coalesce_delay_ms)
+SCHED_DELAY_MS = 2.0
+# stream index of each planted class in (a): a broken signature, a signed
+# payload the app rejects (no '=' anywhere in the envelope), an envelope cut
+# short (a bare tx to the app, no '='), a copy of an admitted tx, a tx one
+# byte over MAX_TX_BYTES, and a second write of tx CONFLICT[0]'s payload key
+# (admitted; once a block commits the first, the recheck drops it)
+INGEST_PLANTS = {"bad_sig": 777, "app_reject": 1_500, "malformed": 2_000,
+                 "duplicate": (3_000, 100), "oversize": 3_500, "conflict": (10, 4_000)}
+TENANTS = 16
+TENANT_ROUNDS = 2  # of INGEST_TXS each; the mempool holds MEMPOOL_SIZE
+TENANT_TRIES = 3  # runs of (b) until a coalesced dispatch takes a device route
+BIG_WINDOW = 4_096  # (c): a node that raises admission_window
+BIG_TXS = 16_384
+BIG_DELAY_S = 1.0  # long enough for one producer to fill a 4,096 window
+BLOCKS_VALIDATORS = 150  # BASELINE.json's Cosmos Hub set
+BLOCKS = 8
+BLOCK_MAX_BYTES = 88_000  # the 5,000 txs of (a) drain in 8 blocks
+EVIDENCE_AT = (2, 5, 3)  # (vote height, validator index, reported after block)
+LIGHT_FORK_BLOCKS = 16
+LIGHT_FORK_TARGET = 12
+LIGHT_NOW_S = 1_700_001_000  # after every header of phase 7's chain
+
+
+def payload_key(tx: bytes) -> bytes:
+    """The key a tx's `key=value` payload writes (an STX envelope's
+    payload, else the tx)."""
+    from cometbft_tpu_torch.mempool import parse_signed_tx
+
+    parsed = parse_signed_tx(tx)
+    return (parsed[2] if parsed is not None else tx).partition(b"=")[0]
+
+
+def once_app(kvstore_cls, check_result_cls):
+    """A KVStore app whose CheckTx also refuses (code 2) a tx whose payload
+    key a committed block already wrote, as an account's nonce would: the
+    state a recheck runs against. It keeps the misbehavior FinalizeBlock
+    hands it."""
+
+    class Once(kvstore_cls):
+        def __init__(self):
+            super().__init__()
+            self.written: set[bytes] = set()
+            self.staged: list[bytes] = []
+            self.misbehavior: list = []
+
+        def check_tx(self, tx):
+            if payload_key(tx) in self.written:
+                return check_result_cls(code=2, log="key already written")
+            return super().check_tx(tx)
+
+        def finalize_block(self, req):
+            self.staged = [payload_key(tx) for tx in req.txs]
+            self.misbehavior.extend(req.misbehavior)
+            return super().finalize_block(req)
+
+        def commit(self):
+            self.written.update(self.staged)
+            return super().commit()
+
+    return Once()
+
+
+def ingest_payload(tenant: int, sender: int, i: int) -> bytes:
+    """A `key=value` payload of 40 B (140 B in its envelope)."""
+    return b"t%02d-acct%04d-n%05d=%020x" % (tenant, sender, i, i * 2654435761 % (1 << 64))
+
+
+def broken_signature(tx: bytes) -> bytes:
+    """The STX tx with one bit of its signature's R flipped."""
+    return tx[:4 + 32 + 5] + bytes([tx[4 + 32 + 5] ^ 0x01]) + tx[4 + 32 + 6:]
+
+
+def ingest_stream(signers, tenant: int, n: int, plants: dict, seed: int, device):
+    """n signed txs of `tenant`, tx i from signer i % len(signers), with the
+    classes of `plants` (keys of INGEST_PLANTS, a subset) put at their
+    indices. Returns (txs, the indices of broken signatures)."""
+    from cometbft_tpu_torch.utils import factories as fx
+
+    payloads = [ingest_payload(tenant, i % len(signers), i) for i in range(n)]
+    if "conflict" in plants:
+        first, second = plants["conflict"]
+        payloads[second] = payloads[first].partition(b"=")[0] + b"=second-write"
+    # candidates for a signed payload the app rejects, all signed in the same batch
+    cands = [b"t%02d-noeq-%d" % (tenant, j) for j in range(16)]
+    signed = fx.signed_txs([signers[i % len(signers)] for i in range(n)] + [signers[0]] * 16,
+                           payloads + cands, seed=seed, device=device)
+    txs, bad = signed[:n], set()
+    if "bad_sig" in plants:
+        i = plants["bad_sig"]
+        txs[i] = broken_signature(txs[i])
+        bad.add(i)
+    if "app_reject" in plants:
+        txs[plants["app_reject"]] = next(t for t in signed[n:] if b"=" not in t)
+    if "malformed" in plants:
+        txs[plants["malformed"]] = b"STX\x01" + b"cut-short-envelope-%d" % tenant
+    if "duplicate" in plants:
+        at, of = plants["duplicate"]
+        txs[at] = txs[of]
+    if "oversize" in plants:
+        txs[plants["oversize"]] = b"x" * (MAX_TX_BYTES + 1)
+    return txs, bad
+
+
+def expected_ingest_outcome(txs, bad, max_txs: int, max_tx_bytes: int):
+    """Each tx's admission outcome, in submit order, by the reference's
+    rules with the KVStore app: None (admitted) or (exception class name,
+    message). The checks run in the mempool's order: size, the LRU cache
+    (a copy of a tx seen and not rejected), a full pool, the signature
+    (`bad`: indices of broken STX signatures), the app (a `key=value`
+    payload with a key), then the insert. A rejected tx leaves the cache."""
+    out, cache, size = [], set(), 0
+    for i, tx in enumerate(txs):
+        if len(tx) > max_tx_bytes:
+            out.append(("ErrTxTooLarge", f"tx {len(tx)}B > {max_tx_bytes}B"))
+            continue
+        key = hashlib.sha256(tx).digest()
+        if key in cache:
+            out.append(("ErrTxInCache", f"tx {key.hex()[:12]} already seen"))
+            continue
+        if size >= max_txs:
+            out.append(("ErrMempoolFull", f"mempool full: {size} >= {max_txs}"))
+            continue
+        if i in bad:
+            out.append(("ValueError", "tx rejected: invalid signature"))
+            continue
+        if b"=" not in tx or tx.startswith(b"="):
+            out.append(("ValueError", "tx rejected by app: code 1"))
+            continue
+        cache.add(key)
+        size += 1
+        out.append(None)
+    return out
+
+
+def future_outcomes(futures, timeout: float = 600.0) -> list:
+    """None for each future that resolved, else (exception class name,
+    message)."""
+    out = []
+    for f in futures:
+        exc = f.exception(timeout=timeout)
+        out.append(None if exc is None else (type(exc).__name__, str(exc)))
+    return out
+
+
+def check_ingest(what: str, got: list, want: list) -> None:
+    if got != want:
+        diff = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w][:5]
+        raise AssertionError(f"ingest, {what}: {sum(g != w for g, w in zip(got, want))} of "
+                             f"{len(want)} outcomes differ, first {diff}")
+
+
+def path_counts() -> dict:
+    from cometbft_tpu_torch.utils.metrics import crypto_metrics
+
+    return {k[0]: v for k, v in crypto_metrics().path_selected_total.values().items()
+            if k[1] == "ed25519"}
+
+
+def routes_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in path_counts().items()
+            if v != before.get(k, 0.0)}
+
+
+class TraceTap:
+    """The spans a leg wrote to the JSONL trace (utils/trace.py): `mark()`
+    before the leg, `spans(name)` after it."""
+
+    def __init__(self, path: Path):
+        self.path, self.offset = path, 0
+
+    def mark(self) -> None:
+        self.offset = self.path.stat().st_size if self.path.exists() else 0
+
+    def spans(self, name: str) -> list:
+        with open(self.path, "rb") as fh:
+            fh.seek(self.offset)
+            recs = [json.loads(ln) for ln in fh.read().splitlines() if ln.strip()]
+        return [r for r in recs if r["name"] == name]
+
+
+def window_stats(spans) -> dict:
+    """The admission windows' sizes and stage milliseconds (min, median,
+    max) from `mempool.admit_window` spans."""
+    out = {"windows": len(spans)}
+    for k in ("n", "sig_ms", "app_ms", "insert_ms", "dur_ms"):
+        v = [s[k] for s in spans]
+        out[k] = [float(np.min(v)), float(np.median(v)), float(np.max(v))] if v else None
+    return out
+
+
+def make_scheduler(dev):
+    """The shared VerifyScheduler at SchedConfig's settings, recording each
+    dispatch as (requests, signatures, route, ms). Only its drainer
+    verifies while a leg runs, so the path counters' change across a
+    dispatch is that dispatch's route."""
+    from cometbft_tpu_torch.crypto.sched import VerifyScheduler
+
+    class Counting(VerifyScheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.log = []
+
+        def _dispatch(self, batch):
+            before, t = path_counts(), time.perf_counter()
+            try:
+                super()._dispatch(batch)
+            finally:
+                routes = routes_since(before)
+                self.log.append((len(batch), sum(r.n for r in batch),
+                                 ",".join(sorted(routes)) or "none",
+                                 (time.perf_counter() - t) * 1e3))
+
+    return Counting(device=dev, max_coalesce_sigs=SCHED_SIGS, max_coalesce_delay_ms=SCHED_DELAY_MS)
+
+
+def ingest_node(app, dev, sched=None, tenant: str = INGEST_CHAIN, window=None, delay_s=None):
+    """A CListMempool at MempoolConfig's settings with its AdmissionPipeline
+    (window and delay ADMISSION_WINDOW and ADMISSION_DELAY_S unless given)."""
+    from cometbft_tpu_torch.abci import AppConns
+    from cometbft_tpu_torch.mempool import AdmissionPipeline, CListMempool
+
+    window = ADMISSION_WINDOW if window is None else window
+    delay_s = ADMISSION_DELAY_S if delay_s is None else delay_s
+
+    mp = CListMempool(AppConns(app), max_txs=MEMPOOL_SIZE, max_tx_bytes=MAX_TX_BYTES,
+                      cache_size=MEMPOOL_CACHE)
+    mp.attach_pipeline(AdmissionPipeline(mp, window=window, max_delay_s=delay_s, device=dev,
+                                         sched=sched, tenant=tenant))
+    return mp
+
+
+def reap_all(mp, height: int) -> list:
+    """What a proposer would do between rounds: reap the pool and update
+    it with those txs as committed (under the mempool's lock)."""
+    mp.lock()
+    try:
+        txs = mp.reap_max_txs(-1)
+        mp.update(height, txs)
+    finally:
+        mp.unlock()
+    return txs
+
+
+def blocks_leg(mp, signers, dev, kv_cls, check_result_cls, n_blocks: int, chain_id: str,
+               block_max_bytes: int, evidence_at, r_pool=None):
+    """Blocks from the mempool `mp` (whose app is the node's): each reaped
+    with `reap_max_bytes_max_gas` under the state's consensus parameters,
+    proposed by `create_proposal_block` with the pool's pending evidence,
+    committed by every validator (`make_commit`) and applied by
+    `apply_block` with the mempool and an `EvidencePool` attached. After
+    block evidence_at[2], validator evidence_at[1] is reported to the pool
+    for two signed precommits at height evidence_at[0]. Returns a dict:
+    the genesis state, the (block bytes, commit bytes) of each height, the
+    final state, the block store, the pool, the app, the evidence and the
+    txs and evidence each block carried."""
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.state.execution import BlockExecutor, make_genesis_state
+    from cometbft_tpu_torch.state.types import BlockParams, ConsensusParams
+    from cometbft_tpu_torch.storage import BlockStore, MemKV, StateStore
+    from cometbft_tpu_torch.types import Commit, Timestamp, Vote
+    from cometbft_tpu_torch.types.vote import SignedMsgType
+    from cometbft_tpu_torch.utils import factories as fx
+
+    vals = fx.make_validator_set(signers)
+    by_addr = {s.address(): s for s in signers}
+    genesis = make_genesis_state(chain_id, vals, consensus_params=ConsensusParams(
+        block=BlockParams(max_bytes=block_max_bytes)))
+    ss, bs = StateStore(MemKV()), BlockStore(MemKV())
+    ss.save(genesis)
+    pool = EvidencePool(state_store=ss, block_store=bs, chain_id=chain_id)
+    ex = BlockExecutor(mp.app, state_store=ss, block_store=bs, device=dev, mempool=mp,
+                       evidence_pool=pool)
+    state, last_commit, recs, carried, ev = genesis.copy(), Commit(), [], [], None
+    for h in range(1, n_blocks + 1):
+        params = state.consensus_params.block
+        txs = mp.reap_max_bytes_max_gas(params.max_bytes, params.max_gas)
+        block = ex.create_proposal_block(h, state, last_commit,
+                                         state.validators.get_proposer().address, txs,
+                                         block_time=state.last_block_time)
+        bid = fx.block_id_for(block)
+        vals_h = state.validators
+        state = ex.apply_block(state, bid, block)
+        commit = fx.make_commit(chain_id, h, 0, bid, vals_h, by_addr,
+                                time_ns=state.last_block_time.unix_ns() + 1_000_000_000,
+                                device=dev, r_pool=r_pool)
+        bs.save_block(block, commit)
+        recs.append((block.encode(), commit.encode()))
+        carried.append((len(block.data.txs), len(block.evidence)))
+        last_commit = commit
+        if h == evidence_at[2]:
+            vh, vi, _ = evidence_at
+            val = vals.validators[vi]
+            votes = []
+            for tag in (b"one", b"two"):
+                v = Vote(type=SignedMsgType.PRECOMMIT, height=vh, round=0,
+                         block_id=fx.make_block_id(tag), timestamp=Timestamp(9, 0),
+                         validator_address=val.address, validator_index=vi)
+                fx.sign_vote(by_addr[val.address], v, chain_id)
+                votes.append(v)
+            pool.report_conflicting_votes(*votes)
+        if ev is None and block.evidence:
+            ev = block.evidence[0]
+    return {"genesis": genesis, "blocks": recs, "final": state, "store": bs, "pool": pool,
+            "app": ex.app.consensus._app, "evidence": ev, "carried": carried}
+
+
+def expected_blocks_state(genesis_bytes: bytes, blocks: list, app, chain_id: str) -> bytes:
+    """The state bytes after applying the recorded (block bytes, commit
+    bytes) from genesis through a fresh executor on the host (device
+    "cpu": the native route, or the kernels' plain versions) with `app`
+    and an evidence pool that checks each block's evidence."""
+    from cometbft_tpu_torch.abci import AppConns
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.types import State
+    from cometbft_tpu_torch.storage import MemKV, StateStore
+    from cometbft_tpu_torch.types import Block
+    from cometbft_tpu_torch.utils import factories as fx
+
+    state = State.decode(genesis_bytes)
+    ss = StateStore(MemKV())
+    ss.save(state)
+    ex = BlockExecutor(AppConns(app), state_store=ss, device="cpu",
+                       evidence_pool=EvidencePool(state_store=ss, chain_id=chain_id))
+    for block_bytes, _ in blocks:
+        block = Block.decode(block_bytes)
+        state = ex.apply_block(state, fx.block_id_for(block), block)
+    return state.encode()
+
+
+def expected_light_outcome(target: int, fork_target: int, addresses: list, common: int = 1):
+    """What phase 8's light-client leg sees, by the reference's rules, on a
+    chain of one constant validator set: initialize at `common`, skip to
+    `target` in one step (the whole trusted set signed it) and store
+    {common, target}, the agreeing witness agrees. Against a witness
+    whose fork the same validators signed: verifying to `fork_target`
+    raises ErrConflictingHeaders from witness 0, with evidence rooted at
+    `common` naming every validator, and the witness is handed evidence
+    for its own block and for the primary's."""
+    return {
+        "heights": [common, target],
+        "error": ("ErrConflictingHeaders",
+                  f"witness 0 disagrees at height {fork_target} — light-client attack"),
+        "common_height": common,
+        "byzantine": sorted(addresses),
+        "reported_heights": [fork_target, fork_target],
+    }
+
+
+def ingest_phase(dev, card, seed: int, kern: dict, chain) -> dict:
+    """Phase 8: signed ingest through the mempool and the admission pipeline
+    on the shared scheduler, blocks with the mempool and an evidence pool,
+    and the light client on phase 7's chain. `chain` is phase 7's
+    (store, final state). Returns the `ingest` results (launch counts by
+    leg under "counts")."""
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+    from cometbft_tpu_torch.utils import factories as fx
+    from cometbft_tpu_torch.utils import trace
+
+    out, counts = {"card": card}, {}
+    t_phase = time.perf_counter()
+    tap = TraceTap(OUT_DIR / "trace_ingest.jsonl")
+    if tap.path.exists():
+        tap.path.unlink()
+    trace.configure(str(tap.path))
+    try:
+        # the senders and (a)'s stream, signed on the card (fe_mul, fe_sq)
+        def sign():
+            s = fx.make_signers(INGEST_SENDERS, seed=seed + 7, device=dev)
+            return s, ingest_stream(s, 0, INGEST_TXS + INGEST_FILL, INGEST_PLANTS, seed + 1, dev)
+
+        t0 = time.perf_counter()
+        (senders, (txs_a, bad_a)), _ = counted_leg(counts, "ingest", "sign", sign,
+                                                   need=("fe_mul", "fe_sq"))
+        out["sign_s"] = time.perf_counter() - t0
+        log(f"ingest: {INGEST_SENDERS} senders and {len(txs_a)} signed txs made on {dev} in "
+            f"{out['sign_s']:.2f} s [{card}]")
+
+        # (a) one node at MempoolConfig's defaults, on the shared scheduler
+        want = expected_ingest_outcome(txs_a, bad_a, MEMPOOL_SIZE, MAX_TX_BYTES)
+        app_a = once_app(KVStoreApp, CheckTxResult)
+        sched = make_scheduler(dev)
+        mp = ingest_node(app_a, dev, sched=sched)
+        tap.mark()
+
+        def run_a():
+            t = time.perf_counter()
+            got = future_outcomes([mp.submit_tx(tx) for tx in txs_a])
+            return got, time.perf_counter() - t
+
+        (got, wall), routes = counted_leg(counts, "ingest", "one_node", run_a)
+        check_ingest("one node", got, want)
+        classes = {}
+        for o in got:
+            classes[o[0] if o else "admitted"] = classes.get(o[0] if o else "admitted", 0) + 1
+        if mp.size() != MEMPOOL_SIZE or set(classes) != {
+                "admitted", "ErrTxTooLarge", "ErrTxInCache", "ErrMempoolFull", "ValueError"}:
+            raise AssertionError(f"ingest, one node: pool {mp.size()}, outcomes {classes}")
+        out["one_node"] = {"txs": len(txs_a), "outcomes": classes, "wall_s": wall,
+                           "admitted_per_s": classes["admitted"] / wall, "routes": routes,
+                           "dispatches": sched.log[:], "windows":
+                           window_stats(tap.spans("mempool.admit_window"))}
+        sched.close()
+        log(f"ingest, (a) one node: {len(txs_a)} txs in {wall:.3f} s, outcomes {classes} (each "
+            f"as expected_ingest_outcome), {out['one_node']['admitted_per_s']:.0f} admitted/s; "
+            f"routes {routes}; windows {out['one_node']['windows']} [{card}]")
+
+        # (b) sixteen tenants on one scheduler, two rounds each
+        t0 = time.perf_counter()
+        streams = []
+        for t in range(TENANTS):
+            txs_t, bad_t = ingest_stream(senders, t + 1, TENANT_ROUNDS * INGEST_TXS,
+                                         {"bad_sig": (97 * t + 13) % INGEST_TXS}, seed + 2 + t,
+                                         dev)
+            streams.append([(txs_t[r * INGEST_TXS:(r + 1) * INGEST_TXS],
+                             {i - r * INGEST_TXS for i in bad_t
+                              if r * INGEST_TXS <= i < (r + 1) * INGEST_TXS})
+                            for r in range(TENANT_ROUNDS)])
+        log(f"ingest, (b): {TENANTS} x {TENANT_ROUNDS * INGEST_TXS} signed txs made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for attempt in range(1, TENANT_TRIES + 1):
+            res = tenants_leg(dev, streams, counts, f"tenants_{attempt}", tap)
+            device = [d for d in res["dispatches"] if d[0] > 1 and d[2] in ("ladder", "rlc")]
+            if device:
+                break
+            log(f"ingest, (b) run {attempt}: no coalesced dispatch took a device route "
+                f"(dispatches {res['dispatches'][:8]} ...); running it again")
+        else:
+            raise AssertionError(f"ingest, (b): no coalesced dispatch took a device route in "
+                                 f"{TENANT_TRIES} runs")
+        res["runs"] = attempt
+        out["tenants"] = res
+        log(f"ingest, (b) {TENANTS} tenants: {res['admitted']} admitted in {res['wall_s']:.3f} s "
+            f"-> {res['admitted_per_s']:.0f} txs/s in total, per tenant "
+            f"{[round(x) for x in res['tenant_admitted_per_s']]}; {res['n_dispatches']} "
+            f"dispatches ({res['dispatches_per_1k_sigs']:.3f} per 1,000 signatures), coalesced "
+            f"batch sigs {res['coalesced_sigs']}, routes {res['routes']}, {len(device)} "
+            f"coalesced dispatches on a device route; dispatch time by route "
+            f"{res['dispatch_by_route']}; windows {res['windows']} [{card}]")
+
+        # (c) one node at admission_window 4,096: every full window on a device route
+        out["big_window"] = big_window_leg(dev, senders, seed, counts, tap, card)
+
+        # (d) blocks from (a)'s mempool with an evidence pool
+        out["blocks"] = blocks_phase(mp, dev, seed, counts, card, txs_a)
+
+        # (e) the light client on phase 7's chain
+        out["light"] = light_phase(dev, seed, counts, card, chain)
+    finally:
+        trace.disable()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"ingest: phase 8 took {out['seconds']:.1f} s [{card}]")
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["ingest"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["ingest"]
+    return out
+
+
+def tenants_leg(dev, streams, counts, leg: str, tap) -> dict:
+    """(b): one node a tenant (its own chain id, app, mempool and pipeline
+    at window 256) on one shared scheduler, one producer thread each; each
+    round's outcomes must be expected_ingest_outcome's (a tenant's broken
+    signature comes back to that tenant only)."""
+    import threading
+
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+
+    sched = make_scheduler(dev)
+    nodes = [ingest_node(once_app(KVStoreApp, CheckTxResult), dev, sched=sched,
+                         tenant=f"tenant-{t:02d}") for t in range(len(streams))]
+    got = [[] for _ in streams]
+    walls = [0.0] * len(streams)
+    errors = []
+
+    def producer(t):
+        try:
+            for r, (txs, _) in enumerate(streams[t]):
+                t0 = time.perf_counter()
+                got[t].append(future_outcomes([nodes[t].submit_tx(tx) for tx in txs]))
+                walls[t] += time.perf_counter() - t0
+                reap_all(nodes[t], r + 1)
+        except Exception as e:  # noqa: BLE001 — raised by the leg below
+            errors.append((t, e))
+
+    def run():
+        threads = [threading.Thread(target=producer, args=(t,)) for t in range(len(streams))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        return time.perf_counter() - t0
+
+    tap.mark()
+    try:
+        wall, routes = counted_leg(counts, "ingest", leg, run)
+    finally:
+        sched.close()
+        for m in nodes:
+            m.close()
+    if errors:
+        raise AssertionError(f"ingest, (b): producer failures {errors[:3]}")
+    admitted = []
+    for t, rounds in enumerate(streams):
+        n_ok = 0
+        for r, (txs, bad) in enumerate(rounds):
+            check_ingest(f"tenant {t} round {r}", got[t][r],
+                         expected_ingest_outcome(txs, bad, MEMPOOL_SIZE, MAX_TX_BYTES))
+            n_ok += sum(o is None for o in got[t][r])
+        admitted.append(n_ok)
+    disp = sched.log
+    sigs = sum(d[1] for d in disp)
+    by_route = {}
+    for _, n, route, ms in disp:
+        c = by_route.setdefault(route, {"dispatches": 0, "sigs": 0, "ms": 0.0})
+        c["dispatches"], c["sigs"], c["ms"] = c["dispatches"] + 1, c["sigs"] + n, c["ms"] + ms
+    return {"dispatch_by_route": by_route, "wall_s": wall, "admitted": sum(admitted), "admitted_per_s": sum(admitted) / wall,
+            "tenant_admitted_per_s": [a / w for a, w in zip(admitted, walls)],
+            "n_dispatches": len(disp), "dispatches_per_1k_sigs": len(disp) * 1e3 / sigs,
+            "coalesced_sigs": sorted({d[1] for d in disp if d[0] > 1})[-8:],
+            "coalesced_dispatches": sum(d[0] > 1 for d in disp),
+            "routes": routes, "dispatches": disp,
+            "windows": window_stats(tap.spans("mempool.admit_window"))}
+
+
+def big_window_leg(dev, senders, seed: int, counts, tap, card) -> dict:
+    """(c): one node at admission_window 4,096 (no scheduler), BIG_TXS txs
+    in rounds of 4,096 with a reap and update between them; each round is
+    one full window, which must take a device route, with one broken
+    signature a round."""
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+
+    rounds = BIG_TXS // BIG_WINDOW
+    txs, _ = ingest_stream(senders, 99, BIG_TXS, {}, seed + 40, dev)
+    mp = ingest_node(once_app(KVStoreApp, CheckTxResult), dev, window=BIG_WINDOW,
+                     delay_s=BIG_DELAY_S)
+    per_round, t_all = [], 0.0
+    tap.mark()
+    try:
+        for r in range(rounds):
+            part = txs[r * BIG_WINDOW:(r + 1) * BIG_WINDOW]
+            bad_r = {(1_234 + 77 * r) % BIG_WINDOW}  # a broken signature in every round
+            for i in bad_r:
+                part[i] = broken_signature(part[i])
+
+            def run():
+                t = time.perf_counter()
+                res = future_outcomes([mp.submit_tx(tx) for tx in part])
+                return res, time.perf_counter() - t
+
+            (got, wall), routes = counted_leg(counts, "ingest", f"big_window_{r}", run,
+                                              need=("decompress", "ladder_sub_mul8"))
+            check_ingest(f"(c) round {r}", got,
+                         expected_ingest_outcome(part, bad_r, MEMPOOL_SIZE, MAX_TX_BYTES))
+            # a RLC window whose all-ok is false reruns on the ladder for its
+            # bitmap (the blame), which counts as a ladder dispatch
+            if routes not in ({"ladder": 1.0}, {"rlc": 1.0}, {"rlc": 1.0, "ladder": 1.0}):
+                raise AssertionError(f"ingest, (c) round {r}: routes {routes}, want one "
+                                     "dispatch on the ladder or RLC (and RLC's blame rerun)")
+            per_round.append({"routes": routes, "wall_s": wall,
+                              "admitted": sum(o is None for o in got)})
+            t_all += wall
+            reap_all(mp, r + 1)
+    finally:
+        mp.close()
+    spans = tap.spans("mempool.admit_window")
+    if [s["n"] for s in spans] != [BIG_WINDOW] * rounds:
+        raise AssertionError(f"ingest, (c): windows {[s['n'] for s in spans]}, want {rounds} "
+                             f"of {BIG_WINDOW}")
+    res = {"rounds": per_round, "admitted_per_s": sum(p["admitted"] for p in per_round) / t_all,
+           "windows": window_stats(spans)}
+    log(f"ingest, (c) window {BIG_WINDOW}: {BIG_TXS} txs in {rounds} full windows, routes "
+        f"{[p['routes'] for p in per_round]}, {res['admitted_per_s']:.0f} admitted/s; windows "
+        f"{res['windows']} [{card}]")
+    return res
+
+
+def blocks_phase(mp, dev, seed: int, counts, card, txs_a) -> dict:
+    """(d): BLOCKS blocks of a 150-validator chain from (a)'s mempool with
+    an evidence pool; the checks of the module docstring's phase 8 (d)."""
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+    from cometbft_tpu_torch.mempool.mempool import ErrTxInCache
+    from cometbft_tpu_torch.types import Block
+    from cometbft_tpu_torch.utils import factories as fx
+
+    mp.pipeline.close()  # (a)'s scheduler is closed: the node admits directly from here on
+    mp.attach_pipeline(None)
+    pool_before = mp.reap_max_txs(-1)
+    t0 = time.perf_counter()
+    d, routes = counted_leg(counts, "ingest", "blocks", lambda: blocks_leg(
+        mp, fx.make_signers(BLOCKS_VALIDATORS, seed=seed + 50, device=dev), dev, KVStoreApp,
+        CheckTxResult, BLOCKS, INGEST_CHAIN, BLOCK_MAX_BYTES, EVIDENCE_AT,
+        r_pool=fx.RPool(BLOCKS_VALIDATORS, BLOCKS, device=dev)), need=("fe_mul", "fe_sq"))
+    wall = time.perf_counter() - t0
+    committed = [tx for blk, _ in d["blocks"] for tx in Block.decode(blk).data.txs]
+    second = INGEST_PLANTS["conflict"][1]
+    dropped = [tx for tx in pool_before if tx not in set(committed) and tx not in
+               set(mp.reap_max_txs(-1))]
+    # the committed txs left the pool and stay in the cache
+    again = outcome_of(lambda: mp.check_tx(committed[0]))
+    checks = {
+        "committed_left_pool": not set(committed) & set(mp.reap_max_txs(-1)),
+        "readmit_refused": again is not None and again[0] == ErrTxInCache.__name__,
+        "recheck_dropped_second_write": dropped == [txs_a[second]],
+        "evidence_carried": [e for _, e in d["carried"]] == [
+            1 if h == EVIDENCE_AT[2] + 2 else 0 for h in range(1, BLOCKS + 1)],
+        "evidence_pending_after": d["pool"].size() == 0 and not d["pool"].pending_evidence(),
+        "app_saw_misbehavior": [(m.type, m.validator_address, m.height)
+                                for m in d["app"].misbehavior] == [
+            (1, d["evidence"].address(), EVIDENCE_AT[0])] if d["evidence"] else False,
+    }
+    h_ev = EVIDENCE_AT[2] + 2
+    stored = d["store"].load_block(h_ev)
+    checks["evidence_block_round_trips"] = (
+        stored is not None and stored.encode() == d["blocks"][h_ev - 1][0]
+        and stored.hash() == Block.decode(d["blocks"][h_ev - 1][0]).hash()
+        and [e.hash() for e in stored.evidence] == [d["evidence"].hash()])
+    t1 = time.perf_counter()
+    want_state = expected_blocks_state(d["genesis"].encode(), d["blocks"],
+                                       once_app(KVStoreApp, CheckTxResult), INGEST_CHAIN)
+    checks["final_state_bytes"] = d["final"].encode() == want_state
+    expect_s = time.perf_counter() - t1
+    if not all(checks.values()):
+        raise AssertionError(f"ingest, (d) blocks: checks {checks}; carried {d['carried']}")
+    res = {"wall_s": wall, "carried": d["carried"], "routes": routes, "checks": checks,
+           "expected_state_s": expect_s, "pool_after": mp.size()}
+    log(f"ingest, (d) {BLOCKS} blocks x {BLOCKS_VALIDATORS} validators from (a)'s pool in "
+        f"{wall:.3f} s: (txs, evidence) a block {d['carried']}, routes {routes}; checks "
+        f"{sorted(checks)} all hold; the host re-application took {expect_s:.3f} s [{card}]")
+    return res
+
+
+def light_phase(dev, seed: int, counts, card, chain) -> dict:
+    """(e): LightClient on phase 7's chain behind a StoreProvider; skip to
+    its tip with an agreeing witness, then against a witness on a forked
+    chain (the same seed, other txs) raise ErrConflictingHeaders with the
+    attack evidence."""
+    from cometbft_tpu_torch.light import LightClient, LightStore, StoreProvider
+    from cometbft_tpu_torch.state.types import encode_validator_set
+    from cometbft_tpu_torch.storage import MemKV, StateStore, statestore
+    from cometbft_tpu_torch.types import Timestamp
+    from cometbft_tpu_torch.types.evidence import decode_evidence
+    from cometbft_tpu_torch.utils import factories as fx
+
+    store, final = chain
+    now = Timestamp.from_unix_ns(LIGHT_NOW_S * 10**9)
+    tip = store.height()
+
+    def provider(st, vals, n):
+        ss = StateStore(MemKV())
+        enc = encode_validator_set(vals)
+        ss._db.write_batch([(statestore._key_vals(h), enc) for h in range(1, n + 1)])
+        return StoreProvider(REPLAY_CHAIN, st, ss)
+
+    primary = provider(store, final.validators, tip)
+    anchor = primary.light_block(1).signed_header.header.hash()
+    res = {}
+    client = LightClient(REPLAY_CHAIN, primary, witnesses=[provider(store, final.validators, tip)],
+                         store=LightStore(), device=dev)
+    t = time.perf_counter()
+    (_, routes) = counted_leg(counts, "ingest", "light_init", lambda: client.initialize(1, anchor))
+    (lb, routes) = counted_leg(counts, "ingest", "light_skip",
+                               lambda: client.verify_to_height(tip, now))
+    res["skip"] = {"wall_s": time.perf_counter() - t, "routes": routes,
+                   "heights": client.store.heights(), "witnesses": len(client.witnesses)}
+    want = expected_light_outcome(tip, LIGHT_FORK_TARGET,
+                                  [v.address for v in final.validators.validators])
+    if lb.height != tip or client.store.heights() != want["heights"] or len(client.witnesses) != 1:
+        raise AssertionError(f"light, skip: {res['skip']}, want heights {want['heights']}")
+
+    t = time.perf_counter()
+    (fork, _, _, _), _ = counted_leg(counts, "ingest", "light_fork", lambda: fx.make_chain(
+        LIGHT_FORK_BLOCKS, n_validators=len(final.validators), chain_id=REPLAY_CHAIN,
+        txs_per_block=3, seed=seed, device=dev,
+        r_pool=fx.RPool(len(final.validators), LIGHT_FORK_BLOCKS, device=dev)),
+        need=("fe_mul", "fe_sq"))
+    res["fork_make_s"] = time.perf_counter() - t
+    witness = provider(fork, final.validators, LIGHT_FORK_BLOCKS)
+    received = []
+    witness.report_evidence = received.append
+    client2 = LightClient(REPLAY_CHAIN, primary, witnesses=[witness], store=LightStore(),
+                          device=dev)
+    client2.initialize(1, anchor)
+    t = time.perf_counter()
+    caught = {}
+
+    def fork_verify():
+        try:
+            client2.verify_to_height(LIGHT_FORK_TARGET, now)
+        except Exception as e:  # noqa: BLE001 — checked below
+            caught["e"] = e
+            return type(e).__name__, str(e)
+        return None
+
+    got, routes = counted_leg(counts, "ingest", "light_conflict", fork_verify)
+    ev = getattr(caught.get("e"), "evidence", None)
+    res["conflict"] = {"wall_s": time.perf_counter() - t, "routes": routes, "error": got}
+    primary_hash = primary.light_block(LIGHT_FORK_TARGET).signed_header.header.hash()
+    fork_hash = witness.light_block(LIGHT_FORK_TARGET).signed_header.header.hash()
+    checks = {
+        "error": got == want["error"],
+        "common_height": ev is not None and ev.common_height == want["common_height"],
+        "byzantine": ev is not None and sorted(ev.byzantine_validators) == want["byzantine"],
+        "conflicting_block": ev is not None and
+        ev.conflicting_block.signed_header.header.hash() == fork_hash,
+        "evidence_round_trips": ev is not None and decode_evidence(ev.wrapped()).hash() == ev.hash(),
+        "reported": [e.conflicting_block.height for e in received] == want["reported_heights"],
+        "primary_direction": any(e.conflicting_block.signed_header.header.hash() == primary_hash
+                                 for e in received),
+    }
+    res["conflict"]["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"light, fork: {res['conflict']}")
+    log(f"light: initialize(1) and skip to {tip} at {len(final.validators)} validators in "
+        f"{res['skip']['wall_s']:.3f} s (routes {res['skip']['routes']}, stored heights "
+        f"{res['skip']['heights']}); forked witness ({LIGHT_FORK_BLOCKS} blocks made in "
+        f"{res['fork_make_s']:.2f} s): {got[0]} at {LIGHT_FORK_TARGET} in "
+        f"{res['conflict']['wall_s']:.3f} s (routes {routes}), evidence names "
+        f"{len(ev.byzantine_validators)} signers, both directions reported [{card}]")
+    return res
 
 
 def main(argv=None) -> int:
@@ -2533,16 +3322,20 @@ def main(argv=None) -> int:
 
     # ---- phase 7: block-sync replay
     replay = replay_phase(dev, card, args.seed, kern, mul_rate)
+    chain = replay.pop("chain")
+
+    # ---- phase 8: ingest, blocks with the mempool and evidence, the light client
+    ingest = ingest_phase(dev, card, args.seed, kern, chain)
 
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
                    rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
-                   consumers=consumers, replay=replay)
+                   consumers=consumers, replay=replay, ingest=ingest)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phase 8 and 9: the kernel line, the card, the contract line
+    # ---- phase 9 and 10: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

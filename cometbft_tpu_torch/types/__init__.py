@@ -3,8 +3,9 @@
 The port's own copy of the part of `cometbft_tpu/types/` that commit
 verification needs. Wire-compatible with the reference's proto encodings
 (canonical sign-bytes are bit-exact; tests/test_torch_types.py holds them
-against the JAX package's). Not here yet: vote sets, proposals, evidence,
-genesis and certificate-native commits.
+against the JAX package's), and the evidence types (`types/evidence.py`).
+Not here yet: vote sets, proposals, genesis and certificate-native
+commits.
 """
 
 from .basic import BlockID, PartSetHeader, Timestamp, ZERO_TIME  # noqa: F401

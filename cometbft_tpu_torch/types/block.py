@@ -12,9 +12,9 @@ Hash rules (behavior parity with reference types/block.go):
 The port's own copy of `cometbft_tpu/types/block.py`. `Commit.decode`
 parses through the port's native `commit_parse` and `vote_sign_bytes_blob`
 builds through its `commit_sign_bytes` (`crypto/native.py`). Not ported:
-certificate-native commits (`types/agg_commit.py::CertCommit`) and
-evidence decoding; `decode_commit_any` and `Block.decode` raise
-UnsupportedCommitFormat / UnsupportedEvidence for them.
+certificate-native commits (`types/agg_commit.py::CertCommit`);
+`decode_commit_any` raises UnsupportedCommitFormat for them. A block's
+evidence decodes through `types/evidence.py::decode_evidence`.
 """
 
 from __future__ import annotations
@@ -601,10 +601,6 @@ class UnsupportedCommitFormat(ValueError):
     has no verifier for it, so it decodes none."""
 
 
-class UnsupportedEvidence(ValueError):
-    """A block that carries evidence: the evidence types are not ported."""
-
-
 def decode_commit_any(buf: bytes, trusted_bytes: bool = False) -> Commit:
     """One decode path for both commit formats (reference
     types/agg_commit.py decode_commit_any): plain Commits and CertCommits
@@ -668,9 +664,19 @@ class Data:
     txs: list[bytes] = field(default_factory=list)
 
     def hash(self) -> bytes:
+        # columnar fast path (mempool/txcolumns.py): the batch memoizes
+        # its per-tx hash column — bit-identical leaves, merkle unchanged
+        hashes = getattr(self.txs, "tx_hashes", None)
+        if hashes is not None:
+            return merkle.hash_from_byte_slices(hashes())
         return merkle.hash_from_byte_slices([tx_hash(t) for t in self.txs])
 
     def encode(self) -> bytes:
+        # columnar fast path: the batch memoizes the exact repeated
+        # f_bytes(1, tx, emit_empty=True) payload this loop produces
+        enc = getattr(self.txs, "encode_data", None)
+        if enc is not None:
+            return enc()
         out = b""
         for t in self.txs:
             out += pb.f_bytes(1, t, emit_empty=True)
@@ -709,17 +715,19 @@ class Block:
         must never be trusted here (a non-canonical adversarial encoding
         would define this node's BlockID).
 
-        Raises UnsupportedEvidence when the block carries evidence, and
-        UnsupportedCommitFormat when its last commit is a CertCommit."""
+        Raises UnsupportedCommitFormat when its last commit is a
+        CertCommit."""
+        from .evidence import decode_evidence
+
         d = pb.fields_to_dict(buf)
-        for f, _, _v in pb.parse_fields(pb.as_bytes(d.get(3, b""))):
+        evidence = []
+        for f, _, v in pb.parse_fields(pb.as_bytes(d.get(3, b""))):
             if f == 1:
-                raise UnsupportedEvidence(
-                    "block carries evidence; evidence decoding is not ported")
+                evidence.append(decode_evidence(pb.as_bytes(v)))
         blk = cls(
             header=Header.decode(pb.as_bytes(d.get(1, b""))),
             data=Data.decode(pb.as_bytes(d.get(2, b""))),
-            evidence=[],
+            evidence=evidence,
             last_commit=(
                 decode_commit_any(
                     pb.as_bytes(d.get(4, b"")), trusted_bytes=trusted_bytes

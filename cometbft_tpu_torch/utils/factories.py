@@ -127,6 +127,17 @@ def batch_sign(signers: list[ScalarSigner], msgs: list[bytes], seed: int = 1,
     return sigs
 
 
+def signed_txs(signers: list[ScalarSigner], payloads: list[bytes], seed: int = 1,
+               device="cuda") -> list[bytes]:
+    """STX envelopes (`mempool.wrap_signed_tx`'s bytes) of payloads[i]
+    signed by signers[i], the R points of all of them in one `batch_sign`
+    on `device`: senders' signed load for the admission path."""
+    from ..mempool.admission import SIGN_CONTEXT, STX_MAGIC
+
+    sigs = batch_sign(signers, [SIGN_CONTEXT + p for p in payloads], seed=seed, device=device)
+    return [STX_MAGIC + s.pub_bytes + sig + p for s, sig, p in zip(signers, sigs, payloads)]
+
+
 def sign_with_scalar(signer: ScalarSigner, msg: bytes) -> bytes:
     """One host-side signature (deterministic nonce); for single-vote paths
     (consensus state machine, privval) where device batching has nothing to

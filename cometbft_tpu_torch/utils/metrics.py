@@ -11,10 +11,14 @@ backends' metrics line up:
   `sched_queue_depth`, `sched_coalesced_total`, `sched_batch_sigs`);
 - `StateMetrics` (`state/execution.py`) and `StoreMetrics`
   (`storage/blockstore.py`);
-- of `ConsensusMetrics`, only the tx-lifecycle stage histogram that
-  `utils/txlife.py` feeds from `apply_block`'s stamps. The block-sync
-  bundle, the mempool's stage histogram and the arrival->commit
-  histogram come with the reactor and mempool slices that record them.
+- `MempoolMetrics` (`mempool/mempool.py`, `mempool/admission.py` and the
+  mempool-side stamps of `utils/txlife.py`);
+- of `LightClientMetrics`, the two counters `light/client.py` feeds
+  (`headers_verified_total`, `bisections_total`); the serving surface's
+  metrics come with `light/serve.py`;
+- of `ConsensusMetrics`, the tx-lifecycle stage histogram and the
+  arrival->commit histogram that `utils/txlife.py` feeds. The block-sync
+  bundle comes with the reactor that records it.
 
 `crypto_metrics()`, `state_metrics()`, ... hand out the process's bundle
 against `DEFAULT_REGISTRY`; `reset_bundles()` clears them all (tests).
@@ -141,8 +145,8 @@ TX_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
 
 
 class ConsensusMetrics:
-    """The tx-lifecycle stage histogram of the reference's bundle (the
-    rest waits for the consensus slice)."""
+    """The tx-lifecycle histograms of the reference's bundle (the rest
+    waits for the consensus slice)."""
 
     def __init__(self, reg: Registry | None = None):
         reg = reg or DEFAULT_REGISTRY
@@ -153,6 +157,55 @@ class ConsensusMetrics:
             "Per-tx lifecycle stage latency, consensus-side stages "
             "(proposal_wait/consensus/apply/notify); sampled txs only",
             labels=("stage",), buckets=TX_STAGE_BUCKETS)
+        self.tx_commit_seconds = reg.histogram(
+            "consensus", "tx_commit_seconds",
+            "Per-tx end-to-end arrival->commit latency; sampled txs only",
+            buckets=TX_STAGE_BUCKETS)
+
+
+class MempoolMetrics:
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.size = reg.gauge("mempool", "size", "Pending txs")
+        self.failed_txs = reg.counter("mempool", "failed_txs",
+                                      "CheckTx rejections")
+        self.recheck_times = reg.counter("mempool", "recheck_times",
+                                         "Post-block rechecks")
+        self.tx_bytes = reg.gauge(
+            "mempool", "tx_bytes",
+            "Total bytes of pending txs (running counter, not a scan)")
+        # micro-batched admission pipeline: windows amortize the app
+        # round-trip + signature verify + lock acquisition
+        self.admit_window_size = reg.histogram(
+            "mempool", "admit_window_size",
+            "Txs per admission window drained by the pipeline")
+        self.admit_queue_depth = reg.gauge(
+            "mempool", "admit_queue_depth",
+            "Txs waiting in the admission queue")
+        self.admit_latency = reg.histogram(
+            "mempool", "admit_latency",
+            "Seconds from enqueue to admission verdict")
+        # tx lifecycle observatory (utils/txlife.py): mempool-side
+        # waterfall stages, bucket exemplars carrying sampled tx hashes
+        self.tx_stage_seconds = reg.histogram(
+            "mempool", "tx_stage_seconds",
+            "Per-tx lifecycle stage latency, mempool-side stages "
+            "(admit_wait/verify/app_check); sampled txs only",
+            labels=("stage",), buckets=TX_STAGE_BUCKETS)
+
+
+class LightClientMetrics:
+    """The light client's counters of the reference's bundle (the
+    serving surface's metrics wait for `light/serve.py`)."""
+
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.headers_verified_total = reg.counter(
+            "light", "headers_verified_total",
+            "Light blocks verified (sequential + skipping)")
+        self.bisections_total = reg.counter(
+            "light", "bisections_total",
+            "Bisection steps taken during skipping verification")
 
 
 class StateMetrics:
@@ -226,6 +279,14 @@ def _bundle(name: str, cls):
 
 def consensus_metrics() -> ConsensusMetrics:
     return _bundle("consensus", ConsensusMetrics)
+
+
+def mempool_metrics() -> MempoolMetrics:
+    return _bundle("mempool", MempoolMetrics)
+
+
+def light_metrics() -> LightClientMetrics:
+    return _bundle("light", LightClientMetrics)
 
 
 def state_metrics() -> StateMetrics:

@@ -63,6 +63,7 @@ def emit(name: str, kind: str = "event", **fields) -> None:
 # Every name passed to emit() in the port, with the reference's description
 # (tests/test_torch_isolation.py checks both directions).
 SPAN_REGISTRY = {
+    "mempool.admit_window": "one micro-batched admission window: n/dup/sig_fail/app_fail/admitted + stage ms",
     "state.apply_block": "ApplyBlock with validate/finalize/commit/save stage breakdown",
     "crypto.batch_verify": "one batch-verify dispatch: path, n, modeled host/wire/device terms",
     "crypto.commit_partition": "per-curve share of one commit verification",

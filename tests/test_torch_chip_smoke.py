@@ -306,3 +306,102 @@ def test_submit_timer_keeps_the_window_or_submits_it():
     got = chip_smoke.outcome_of(lambda: eng.run(state.copy()))
     assert (*got, app.height) == chip_smoke.expected_replay_outcome("batched", 5, 4, 10, 2, 3, 64)
     assert timer.seconds > 0
+
+
+# ---- phase 8's helpers (ingest, blocks with evidence; the light leg's
+# expected outcome is held in tests/test_torch_light_client.py)
+
+INGEST_PLANTS_SMALL = {"bad_sig": 7, "app_reject": 15, "malformed": 20, "duplicate": (30, 5),
+                       "oversize": 35, "conflict": (2, 40)}
+
+
+@pytest.fixture(scope="module")
+def ingest_world():
+    """Eight senders and an 80-tx stream of every planted class, signed by
+    the port's factories on the CPU (`ingest_stream`)."""
+    from cometbft_tpu_torch.utils import factories as fx
+
+    senders = fx.make_signers(8, seed=29, device="cpu")
+    txs, bad = chip_smoke.ingest_stream(senders, 0, 80, INGEST_PLANTS_SMALL, 1, "cpu")
+    return senders, txs, bad
+
+
+def test_expected_ingest_outcome_matches_the_reference(ingest_world):
+    """`expected_ingest_outcome` against the reference's mempool on the
+    same stream (per-tx path, signatures verified), with a pool of 60: the
+    same class and message for every tx; and the port's pipeline at
+    window 16 on the CPU gives the same."""
+    from cometbft_tpu.abci.client import AppConns as RAppConns
+    from cometbft_tpu.abci.kvstore import KVStoreApp as RKVStoreApp
+    from cometbft_tpu.mempool import CListMempool as RCListMempool
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+
+    _, txs, bad = ingest_world
+    want = chip_smoke.expected_ingest_outcome(txs, bad, 60, chip_smoke.MAX_TX_BYTES)
+    rmp = RCListMempool(RAppConns(RKVStoreApp()), max_txs=60,
+                        max_tx_bytes=chip_smoke.MAX_TX_BYTES, verify_sigs=True)
+    assert [chip_smoke.outcome_of(lambda tx=tx: rmp.check_tx(tx)) for tx in txs] == want
+    assert {o[0] if o else "ok" for o in want} == {
+        "ok", "ValueError", "ErrTxInCache", "ErrTxTooLarge", "ErrMempoolFull"}
+    assert sorted(set(o[1] for o in want if o and o[0] == "ValueError")) == [
+        "tx rejected by app: code 1", "tx rejected: invalid signature"]
+    mp = chip_smoke.ingest_node(chip_smoke.once_app(KVStoreApp, CheckTxResult), "cpu",
+                                window=16)
+    mp.max_txs = 60
+    try:
+        assert chip_smoke.future_outcomes([mp.submit_tx(tx) for tx in txs], 30) == want
+    finally:
+        mp.close()
+    assert mp.reap_max_txs(-1) == rmp.reap_max_txs(-1)
+
+
+def test_blocks_leg_final_state_matches_the_reference(ingest_world):
+    """Phase 8's blocks leg at 4 validators and 6 blocks on the CPU: the
+    final state equals `expected_blocks_state`, and the reference's
+    executor applying the same block bytes (its KVStore app, an evidence
+    pool on its state store) reaches the same state bytes; the evidence
+    rides in block 5, the recheck drops the second write of a key."""
+    from cometbft_tpu.abci import kvstore as RK
+    from cometbft_tpu.abci import types as RAT
+    from cometbft_tpu.abci.client import AppConns as RAppConns
+    from cometbft_tpu.evidence import EvidencePool as REvidencePool
+    from cometbft_tpu.state import execution as RX
+    from cometbft_tpu.state.types import State as RState
+    from cometbft_tpu.storage import MemKV as RMemKV
+    from cometbft_tpu.storage import StateStore as RStateStore
+    from cometbft_tpu.types import block as RBL
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+    from cometbft_tpu_torch.mempool import CListMempool
+    from cometbft_tpu_torch.utils import factories as fx
+
+    senders, txs, bad = ingest_world
+    mp = CListMempool(AppConns(chip_smoke.once_app(KVStoreApp, CheckTxResult)), max_txs=60,
+                      max_tx_bytes=chip_smoke.MAX_TX_BYTES)
+    for tx in txs:
+        chip_smoke.outcome_of(lambda tx=tx: mp.check_tx(tx))
+    before = mp.reap_max_txs(-1)
+    d = chip_smoke.blocks_leg(mp, senders[:4], "cpu", KVStoreApp, CheckTxResult, 6, "blocks",
+                              137 * 30, (2, 1, 3), r_pool=fx.RPool(4, 6, device="cpu"))
+    assert [e for _, e in d["carried"]] == [0, 0, 0, 0, 1, 0]
+    assert d["app"].misbehavior and d["pool"].size() == 0
+    committed = [tx for blk, _ in d["blocks"] for tx in RBL.Block.decode(blk).data.txs]
+    assert [tx for tx in before if tx not in committed and tx not in mp.reap_max_txs(-1)] == \
+        [txs[INGEST_PLANTS_SMALL["conflict"][1]]]
+    final = d["final"].encode()
+    assert chip_smoke.expected_blocks_state(d["genesis"].encode(), d["blocks"],
+                                            chip_smoke.once_app(KVStoreApp, CheckTxResult),
+                                            "blocks") == final
+    rstate = RState.decode(d["genesis"].encode())
+    rss = RStateStore(RMemKV())
+    rss.save(rstate)
+    rex = RX.BlockExecutor(RAppConns(chip_smoke.once_app(RK.KVStoreApp, RAT.CheckTxResult)),
+                           state_store=rss, backend="cpu",
+                           evidence_pool=REvidencePool(state_store=rss, chain_id="blocks"))
+    for blk_bytes, commit_bytes in d["blocks"]:
+        blk = RBL.Block.decode(blk_bytes)
+        assert blk.encode() == blk_bytes
+        assert RBL.Commit.decode(commit_bytes).encode() == commit_bytes
+        rstate = rex.apply_block(rstate, RBL.block_id_for(blk), blk)
+    assert rstate.encode() == final

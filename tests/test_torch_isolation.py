@@ -54,7 +54,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                        "cometbft_tpu_torch.state.execution", "cometbft_tpu_torch.storage.kv",
                        "cometbft_tpu_torch.storage.blockstore",
                        "cometbft_tpu_torch.storage.statestore",
-                       "cometbft_tpu_torch.blocksync.replay"]) - set(names)
+                       "cometbft_tpu_torch.blocksync.replay",
+                       "cometbft_tpu_torch.mempool.txcolumns",
+                       "cometbft_tpu_torch.mempool.mempool",
+                       "cometbft_tpu_torch.mempool.admission",
+                       "cometbft_tpu_torch.evidence.pool", "cometbft_tpu_torch.light.mmr",
+                       "cometbft_tpu_torch.light.store",
+                       "cometbft_tpu_torch.light.client"]) - set(names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 50 else 0)
     """)

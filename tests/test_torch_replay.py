@@ -280,3 +280,74 @@ def test_certificate_commit_in_store_is_refused_by_name(world):
     with pytest.raises(UnsupportedCommitFormat, match="certificate-native commit"):
         eng.run(State.decode(world.ref[2].encode()))
     assert ex.app.consensus._app.height == 8  # the window [1-8] applied
+
+
+def _other_key_set(vals, idx: int, pubkey_base, tag: str = "tendermint/PubKeySecp256k1"):
+    """`vals` with validator `idx`'s key behind a key object of another
+    type (same address, bytes and signature check): a set that only
+    exists in memory, since the port's `decode_pub_key` refuses such keys
+    on the wire."""
+    class OtherKey(pubkey_base):
+        def __init__(self, inner):
+            self.inner = inner
+
+        def address(self):
+            return self.inner.address()
+
+        def bytes(self):
+            return self.inner.bytes()
+
+        def verify_signature(self, msg, sig):
+            return self.inner.verify_signature(msg, sig)
+
+        def type_tag(self):
+            return tag
+
+    out = vals.copy()
+    v = out.validators[idx]
+    v.pub_key = OtherKey(v.pub_key)
+    out.__dict__.pop("_ed_cols", None)
+    return out
+
+
+def test_non_ed25519_key_in_a_window_is_refused_by_name(world):
+    """The kept divergence of `_window_batch`: a set holding a key that is
+    not Ed25519 makes the columnar path decline (`ed25519_columns` is
+    None), and the per-slot path raises ErrUnsupportedKeyType naming the
+    type, height and index, where the reference verifies that signature
+    singly and counts it beside its lanes (the same total as the port's
+    window over the all-Ed25519 set)."""
+    from cometbft_tpu.crypto.keys import PubKey as RPubKey
+    from cometbft_tpu.state.types import State as RState
+    from cometbft_tpu_torch.crypto.keys import PubKey
+
+    store = carried(world.ref[0])
+    blocks = [store.load_block(h) for h in (1, 2, 3)]
+    genesis = State.decode(world.ref[2].encode())
+    vals = _other_key_set(genesis.validators, 2, PubKey)
+    assert vals.ed25519_columns() is None
+    eng = ReplayEngine(store, X.BlockExecutor(AppConns(KVStoreApp()), device="cpu"),
+                       device="cpu")
+    from cometbft_tpu_torch.types.validation import ErrUnsupportedKeyType
+
+    with pytest.raises(ErrUnsupportedKeyType) as ei:
+        eng._queue_window(CHAIN, vals, vals, genesis.last_block_id, genesis.initial_height,
+                          blocks)
+    addr = vals.validators[2].address
+    idx = [cs.validator_address for cs in blocks[1].last_commit.signatures].index(addr)
+    assert str(ei.value) == ("no verifier for key type tendermint/PubKeySecp256k1 at height 1 "
+                             f"index {idx}")
+    # the reference verifies that lane singly and goes on
+    rgen = RState.decode(world.ref[2].encode())
+    rvals = _other_key_set(rgen.validators, 2, RPubKey)
+    rstore = world.ref[0]
+    reng = RReplayEngine(rstore, RX.BlockExecutor(RAppConns(RK.KVStoreApp()), backend="cpu"),
+                         backend="cpu")
+    rblocks = [rstore.load_block(h) for h in (1, 2, 3)]
+    pending, _, n = reng._queue_window(CHAIN, rvals, rvals, rgen.last_block_id,
+                                       rgen.initial_height, rblocks)
+    assert pending.result()[0] and n == reng._resolve_window((pending, [], n))
+    port_vals = genesis.validators
+    _, _, lanes = eng._queue_window(CHAIN, port_vals, port_vals, genesis.last_block_id,
+                                    genesis.initial_height, blocks)
+    assert n == lanes

@@ -376,10 +376,26 @@ def test_certificate_commits_and_evidence_are_refused_by_name():
     with_cert = blk.encode() + pb.f_embedded(4, cert)
     with pytest.raises(BL.UnsupportedCommitFormat):
         Block.decode(with_cert)
+    # a block carrying evidence decodes since the evidence slice: the
+    # reference's bytes and hashes, and it round-trips
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence, evidence_list_hash
+
     with_evidence = pb.f_embedded(1, blk.header.encode()) + pb.f_embedded(
         3, pb.f_embedded(1, b"\x0a\x00"))
-    with pytest.raises(BL.UnsupportedEvidence):
-        Block.decode(with_evidence)
+    got, want = Block.decode(with_evidence), RBL.Block.decode(with_evidence)
+    assert [e.hash() for e in got.evidence] == [e.hash() for e in want.evidence]
+    assert got.encode() == want.encode()
+    votes = [Vote(type=SignedMsgType.PRECOMMIT, height=4, round=0,
+                  block_id=BlockID(bytes([i]) * 32, PartSetHeader(1, bytes([i + 1]) * 32)),
+                  timestamp=Timestamp(9, 0), validator_address=b"\x05" * 20,
+                  signature=bytes([i]) * 64) for i in (7, 3)]
+    ev = DuplicateVoteEvidence.from_votes(*votes, 10, 40, Timestamp(10, 0))
+    eblk = Block(header=Header(chain_id="c", height=5, evidence_hash=evidence_list_hash([ev])),
+                 evidence=[ev])
+    back = Block.decode(eblk.encode())
+    assert back.encode() == eblk.encode() == RBL.Block.decode(eblk.encode()).encode()
+    assert back.hash() == eblk.hash() and evidence_list_hash(back.evidence) == \
+        back.header.evidence_hash
     assert np.array_equal(np.frombuffer(Block.decode(blk.encode()).encode(), np.uint8),
                           np.frombuffer(blk.encode(), np.uint8))
 
