@@ -187,13 +187,21 @@ and never prints its last line):
      scheduler, a producer thread each, 8,192 txs a tenant in two rounds
      with a reap and update between, one broken signature a tenant that
      must come back to that tenant alone; the leg counts once a coalesced
-     dispatch took the ladder or RLC (run again up to 3 times); logged:
-     the coalesced batch sizes, routes, dispatches per 1,000 signatures,
-     dispatch time by route, admitted txs/s per tenant and in all;
+     dispatch took the ladder or RLC (run again up to 3 times); logged,
+     from the trace's `crypto.sched_coalesce` and `crypto.batch_verify`
+     spans: the coalesced batch sizes, routes, dispatches per 1,000
+     signatures, dispatch time by route; and admitted txs/s per tenant and
+     in all (tracing and the tx-lifecycle sampler on);
    - (c) one node at `admission_window` 4,096 (and a 1 s delay, so one
-     producer fills it): 16,384 txs in four full windows, each of which
-     must take the ladder or RLC and launch `decompress` and the ladder,
-     one broken signature a window named exactly;
+     producer fills it). First the kernels at one admission window's
+     shapes, laid out by a pipeline (`admission_window_check`, as phase
+     7's window check: 4,096 lanes at bucket 4,096, `accum_weight` at the
+     window's S, the window through RLC all-ok with no blame rerun, a
+     tampered lane named by the blame). Then 16,384 txs in four full
+     windows, each of which must take the ladder or RLC and launch
+     `decompress` and the ladder (and RLC's kernels on RLC): the first
+     window clean, one dispatch; each later one with one broken signature
+     named exactly (on RLC, the blame rerun);
    - (d) 8 blocks of a 150-validator chain from (a)'s mempool (block
      max_bytes 88,000, so that the pool drains over the 8 blocks): reaped
      under the state's consensus parameters, proposed by
@@ -1517,33 +1525,12 @@ class SubmitTimer:
 
 
 def replay_window_check(dev, card, store, state, window: int, mul_rate: float) -> dict:
-    """The replay path's kernels held against their plain versions at the
-    shapes one replay window gives them: the second window of make_chain's
-    chain (64 embedded last commits and the tip commit, 65,000 lanes,
-    bucket 65,536), queued by the engine itself.
-
-    - `decompress` and `ladder_sub_mul8` over the whole bucket, as the
-      ladder route launches them, against their plain versions on 1,027
-      lanes spread over it (first and last included), bit for bit after
-      freeze; ragged launches of the live lanes equal to the bucket's; and
-      every live lane's [8](...) the identity;
-    - the RLC layout of that window (`slot_depth` 178 rounds, padded to
-      S = 256): `accum_weight` against its plain version bit for bit after
-      freeze, ragged launches equal to the full one; `region_sum`,
-      `window_combine` and the B = 1 ladder tail on its output, each
-      against its plain version, and the window's verdict true;
-    - a copy of the window with lane 64,777's signature broken, through
-      `submit()` with the RLC seam pinned: the RLC verdict false, and the
-      blame rerun on the ladder names that lane and no other.
-    """
+    """`batch_window_check` on one replay window: the second window of
+    make_chain's chain (64 embedded last commits and the tip commit, 65,000
+    lanes, bucket 65,536), queued by the engine itself, with lane 64,777
+    (in its tip commit) the tampered one."""
     from cometbft_tpu_torch.abci import AppConns, KVStoreApp
     from cometbft_tpu_torch.blocksync import ReplayEngine
-    from cometbft_tpu_torch.crypto import ed25519 as E
-    from cometbft_tpu_torch.ops import curve as C
-    from cometbft_tpu_torch.ops import field as F
-    from cometbft_tpu_torch.ops import kernels as K
-    from cometbft_tpu_torch.ops import msm as M
-    from cometbft_tpu_torch.ops import scalar as SC
     from cometbft_tpu_torch.state.execution import BlockExecutor
     from cometbft_tpu_torch.types.block import block_id_for
 
@@ -1553,12 +1540,60 @@ def replay_window_check(dev, card, store, state, window: int, mul_rate: float) -
     blocks = [store.load_block(h) for h in range(window + 1, 2 * window + 1)]
     eng._queue_window(state.chain_id, state.validators, state.validators,
                       block_id_for(store.load_block(window)), state.initial_height, blocks)
-    bv = keep.kept
+    want_n = replay_window_lanes(2 * window, len(state.validators), window)[1]
+    if keep.kept.count() != want_n:
+        raise AssertionError(f"replay window check: {keep.kept.count()} lanes queued, want {want_n}")
+    return batch_window_check(dev, card, keep.kept, "replay window", REPLAY_CHECK_BAD_LANE, mul_rate)
+
+
+def pinned_rlc_submit(bv, what: str):
+    """`bv.submit()` with the RLC route pinned, again until the layout
+    accepts the batch (it draws z afresh on each submit). Returns the RLC
+    pending result and the number of submits it took."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+
+    prev = E._rlc_beats_ladder
+    E._rlc_beats_ladder = lambda n_, b_, device: True
+    try:
+        for submits in range(1, REPLAY_RLC_TRIES + 1):
+            pending = bv.submit()
+            if pending._path == "rlc":
+                return pending, submits
+    finally:
+        E._rlc_beats_ladder = prev
+    raise AssertionError(f"the RLC layout declined {what} {REPLAY_RLC_TRIES} times")
+
+
+def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float) -> dict:
+    """The verify path's kernels held against their plain versions at the
+    shapes one queued window `bv` (an Ed25519BatchVerifier of n lanes,
+    bucket b) gives them:
+
+    - `decompress` and `ladder_sub_mul8` over the whole bucket, as the
+      ladder route launches them, against their plain versions on 1,027
+      lanes spread over it (first and last included), bit for bit after
+      freeze; ragged launches of the live lanes equal to the bucket's; and
+      every live lane's [8](...) the identity;
+    - the window's RLC layout (`slot_depth` rounds, padded to S):
+      `accum_weight` against its plain version bit for bit after freeze,
+      ragged launches equal to the full one; `region_sum`,
+      `window_combine` and the B = 1 ladder tail on its output, each
+      against its plain version, and the window's verdict true;
+    - a copy of the window through `submit()` with the RLC seam pinned:
+      the all-ok scalar true, so no blame rerun, and every lane verified;
+    - a copy with lane `bad_lane`'s signature broken, the same way: the
+      RLC verdict false, and the blame rerun on the ladder names that
+      lane and no other.
+    """
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.ops import msm as M
+    from cometbft_tpu_torch.ops import scalar as SC
+
     n = bv.count()
     b = E._bucket(n)
-    want_n = replay_window_lanes(2 * window, len(state.validators), window)[1]
-    if n != want_n:
-        raise AssertionError(f"replay window check: {n} lanes queued, want {want_n}")
     per_lane = products_per_lane(8)
     out = {"lanes": n, "bucket": b}
 
@@ -1575,7 +1610,7 @@ def replay_window_check(dev, card, store, state, window: int, mul_rate: float) -
     sign_row = sign[None, :].contiguous()
     lanes = torch.linspace(0, b - 1, LADDER_CHECK_LANES, device=dev).round().long()
     if len(set(lanes.tolist())) != LADDER_CHECK_LANES:
-        raise AssertionError("replay window check: the sampled lanes repeat")
+        raise AssertionError(f"{what} check: the sampled lanes repeat")
 
     valid, x, t = K.decompress(y, sign_row)
     pv, px, pt = C.decompress_plain(y[:, lanes], sign[lanes])
@@ -1622,7 +1657,7 @@ def replay_window_check(dev, card, store, state, window: int, mul_rate: float) -
         if packed is not None:
             break
     else:
-        raise AssertionError(f"the RLC layout declined the checked window {REPLAY_RLC_TRIES} times")
+        raise AssertionError(f"the RLC layout declined the checked {what} {REPLAY_RLC_TRIES} times")
     buf, fields, s_pad = packed
     f = E.unpack_fields(buf.to(dev), fields)
     gather_idx, gather_neg = M.expand_stream(f["stream"], f["stream_neg"], f["counts"], s_pad)
@@ -1662,43 +1697,44 @@ def replay_window_check(dev, card, store, state, window: int, mul_rate: float) -
     tail = torch.stack(C.ladder_sub_mul8(*tail_args))
     m_tail, _ = frozen_diff(F, tail, torch.stack(C.ladder_sub_mul8_plain(*tail_args)))
     if m_sum or m_msm or m_tail:
-        raise AssertionError(f"the RLC tail of the checked window disagrees with the plain "
+        raise AssertionError(f"the RLC tail of the checked {what} disagrees with the plain "
                              f"versions: region_sum {m_sum}, window_combine {m_msm}, ladder at "
                              f"B = 1 {m_tail}")
     if not bool(F.is_zero(tail[0])[0] & F.eq(tail[1], tail[2])[0]):
-        raise AssertionError("the checked window's [8](msm + [c]B) is not the identity")
+        raise AssertionError(f"the checked {what}'s [8](msm + [c]B) is not the identity")
     del f, buf, gather_idx, gather_neg, neg32, niels, weights, got, sums, msm, tail
+
+    # the window through submit() with RLC pinned: all-ok, no blame rerun
+    clean = E.Ed25519BatchVerifier(dev)
+    clean.absorb(bv)
+    pending, clean_submits = pinned_rlc_submit(clean, f"the checked {what}")
+    all_ok = bool(pending._all_ok.item())
+    ok, bits = pending.result()
+    if not all_ok or not ok or len(bits) != n or not all(bits):
+        raise AssertionError(f"the clean {what} on RLC: all-ok {all_ok}, verdict {ok}, "
+                             f"{sum(not v for v in bits)} of {len(bits)} lanes false")
+    out["clean_rlc"] = {"all_ok": all_ok, "submits": clean_submits}
 
     # the tampered copy: the RLC verdict false, the blame names the lane
     bad = E.Ed25519BatchVerifier(dev)
     bad.absorb(bv)
-    bad._sig_buf[64 * REPLAY_CHECK_BAD_LANE] ^= 1
-    prev = E._rlc_beats_ladder
-    E._rlc_beats_ladder = lambda n_, b_, device: True
-    try:
-        for submits in range(1, REPLAY_RLC_TRIES + 1):
-            pending = bad.submit()
-            if pending._path == "rlc":
-                break
-        else:
-            raise AssertionError(f"the RLC layout declined the tampered window "
-                                 f"{REPLAY_RLC_TRIES} times")
-    finally:
-        E._rlc_beats_ladder = prev
+    bad._sig_buf[64 * bad_lane] ^= 1
+    pending, submits = pinned_rlc_submit(bad, f"the tampered {what}")
     if bool(pending._all_ok.item()):
-        raise AssertionError("the tampered window: the RLC all-ok scalar is not false")
+        raise AssertionError(f"the tampered {what}: the RLC all-ok scalar is not false")
     ok, bits = pending.result()
     wrong = [i for i, v in enumerate(bits) if not v]
-    if ok or wrong != [REPLAY_CHECK_BAD_LANE] or len(bits) != n:
-        raise AssertionError(f"the tampered window: blame names lanes {wrong[:20]}, want "
-                             f"[{REPLAY_CHECK_BAD_LANE}]")
-    out["tampered"] = {"lane": REPLAY_CHECK_BAD_LANE, "submits": submits}
-    log(f"replay window check, {n} lanes at bucket {b}: decompress and ladder_sub_mul8 exact on "
+    if ok or wrong != [bad_lane] or len(bits) != n:
+        raise AssertionError(f"the tampered {what}: blame names lanes {wrong[:20]}, want "
+                             f"[{bad_lane}]")
+    out["tampered"] = {"lane": bad_lane, "submits": submits}
+    log(f"{what} check, {n} lanes at bucket {b}: decompress and ladder_sub_mul8 exact on "
         f"{LADDER_CHECK_LANES} lanes against the plain versions, ragged B={n} launches equal, "
         f"every live lane verifies; accum_weight at S={s_pad} ({n_pts} points, layout accepted "
         f"on try {tries}) exact, ragged {RAGGED_LANES} equal; region_sum, window_combine and "
-        f"the B = 1 tail exact, verdict true; lane {REPLAY_CHECK_BAD_LANE} broken: RLC false, "
-        f"blame names it alone. Times ms (bound): " + ", ".join(
+        f"the B = 1 tail exact, verdict true; through submit() on RLC: all-ok true with no "
+        f"blame rerun; lane {bad_lane} broken: RLC false, blame names it alone. Times ms "
+        f"(bound): " + ", ".join(
             f"{k} {out[k]['ms']:.4f} ({out[k]['bound_ms']:.4f})"
             for k in ("decompress", "ladder_sub_mul8", "accum_weight")) + f" [{card}]")
     return out
@@ -1985,6 +2021,7 @@ TENANT_TRIES = 3  # runs of (b) until a coalesced dispatch takes a device route
 BIG_WINDOW = 4_096  # (c): a node that raises admission_window
 BIG_TXS = 16_384
 BIG_DELAY_S = 1.0  # long enough for one producer to fill a 4,096 window
+ADMISSION_CHECK_BAD_LANE = 4_000  # the tampered lane of the checked admission window
 BLOCKS_VALIDATORS = 150  # BASELINE.json's Cosmos Hub set
 BLOCKS = 8
 BLOCK_MAX_BYTES = 88_000  # the 5,000 txs of (a) drain in 8 blocks
@@ -1994,20 +2031,21 @@ LIGHT_FORK_TARGET = 12
 LIGHT_NOW_S = 1_700_001_000  # after every header of phase 7's chain
 
 
-def payload_key(tx: bytes) -> bytes:
+def payload_key(tx: bytes, parse) -> bytes:
     """The key a tx's `key=value` payload writes (an STX envelope's
-    payload, else the tx)."""
-    from cometbft_tpu_torch.mempool import parse_signed_tx
-
-    parsed = parse_signed_tx(tx)
+    payload as `parse` reads it, else the tx)."""
+    parsed = parse(tx)
     return (parsed[2] if parsed is not None else tx).partition(b"=")[0]
 
 
-def once_app(kvstore_cls, check_result_cls):
+def once_app(kvstore_cls, check_result_cls, parse=None):
     """A KVStore app whose CheckTx also refuses (code 2) a tx whose payload
     key a committed block already wrote, as an account's nonce would: the
     state a recheck runs against. It keeps the misbehavior FinalizeBlock
-    hands it."""
+    hands it. `parse` reads an STX envelope (the port's
+    `mempool.parse_signed_tx` unless given)."""
+    if parse is None:
+        from cometbft_tpu_torch.mempool import parse_signed_tx as parse
 
     class Once(kvstore_cls):
         def __init__(self):
@@ -2017,12 +2055,12 @@ def once_app(kvstore_cls, check_result_cls):
             self.misbehavior: list = []
 
         def check_tx(self, tx):
-            if payload_key(tx) in self.written:
+            if payload_key(tx, parse) in self.written:
                 return check_result_cls(code=2, log="key already written")
             return super().check_tx(tx)
 
         def finalize_block(self, req):
-            self.staged = [payload_key(tx) for tx in req.txs]
+            self.staged = [payload_key(tx, parse) for tx in req.txs]
             self.misbehavior.extend(req.misbehavior)
             return super().finalize_block(req)
 
@@ -2122,18 +2160,6 @@ def check_ingest(what: str, got: list, want: list) -> None:
                              f"{len(want)} outcomes differ, first {diff}")
 
 
-def path_counts() -> dict:
-    from cometbft_tpu_torch.utils.metrics import crypto_metrics
-
-    return {k[0]: v for k, v in crypto_metrics().path_selected_total.values().items()
-            if k[1] == "ed25519"}
-
-
-def routes_since(before: dict) -> dict:
-    return {k: v - before.get(k, 0.0) for k, v in path_counts().items()
-            if v != before.get(k, 0.0)}
-
-
 class TraceTap:
     """The spans a leg wrote to the JSONL trace (utils/trace.py): `mark()`
     before the leg, `spans(name)` after it."""
@@ -2144,11 +2170,12 @@ class TraceTap:
     def mark(self) -> None:
         self.offset = self.path.stat().st_size if self.path.exists() else 0
 
-    def spans(self, name: str) -> list:
+    def spans(self, *names: str) -> list:
+        """The records of these names since `mark()`, in the order written."""
         with open(self.path, "rb") as fh:
             fh.seek(self.offset)
             recs = [json.loads(ln) for ln in fh.read().splitlines() if ln.strip()]
-        return [r for r in recs if r["name"] == name]
+        return [r for r in recs if r["name"] in names]
 
 
 def window_stats(spans) -> dict:
@@ -2161,29 +2188,28 @@ def window_stats(spans) -> dict:
     return out
 
 
+def dispatch_log(tap) -> list:
+    """Each shared-scheduler dispatch since `tap.mark()`, from the trace, as
+    (requests, signatures, route, ms): its `crypto.sched_coalesce` span and
+    the `crypto.batch_verify` spans written before it (only the
+    scheduler's drainer verifies while a leg runs). A RLC dispatch whose
+    all-ok was false reruns on the ladder for the bitmap: "rlc+ladder"."""
+    out, paths = [], []
+    for r in tap.spans("crypto.batch_verify", "crypto.sched_coalesce"):
+        if r["name"] == "crypto.batch_verify":
+            paths.append(r["path"])
+        else:
+            out.append((r["n_requests"], r["sigs"], "+".join(paths) or "none", r["dur_ms"]))
+            paths = []
+    return out
+
+
 def make_scheduler(dev):
-    """The shared VerifyScheduler at SchedConfig's settings, recording each
-    dispatch as (requests, signatures, route, ms). Only its drainer
-    verifies while a leg runs, so the path counters' change across a
-    dispatch is that dispatch's route."""
+    """The shared VerifyScheduler at SchedConfig's settings."""
     from cometbft_tpu_torch.crypto.sched import VerifyScheduler
 
-    class Counting(VerifyScheduler):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.log = []
-
-        def _dispatch(self, batch):
-            before, t = path_counts(), time.perf_counter()
-            try:
-                super()._dispatch(batch)
-            finally:
-                routes = routes_since(before)
-                self.log.append((len(batch), sum(r.n for r in batch),
-                                 ",".join(sorted(routes)) or "none",
-                                 (time.perf_counter() - t) * 1e3))
-
-    return Counting(device=dev, max_coalesce_sigs=SCHED_SIGS, max_coalesce_delay_ms=SCHED_DELAY_MS)
+    return VerifyScheduler(device=dev, max_coalesce_sigs=SCHED_SIGS,
+                           max_coalesce_delay_ms=SCHED_DELAY_MS)
 
 
 def ingest_node(app, dev, sched=None, tenant: str = INGEST_CHAIN, window=None, delay_s=None):
@@ -2320,7 +2346,7 @@ def expected_light_outcome(target: int, fork_target: int, addresses: list, commo
     }
 
 
-def ingest_phase(dev, card, seed: int, kern: dict, chain) -> dict:
+def ingest_phase(dev, card, seed: int, kern: dict, chain, mul_rate: float) -> dict:
     """Phase 8: signed ingest through the mempool and the admission pipeline
     on the shared scheduler, blocks with the mempool and an evidence pool,
     and the light client on phase 7's chain. `chain` is phase 7's
@@ -2372,7 +2398,7 @@ def ingest_phase(dev, card, seed: int, kern: dict, chain) -> dict:
             raise AssertionError(f"ingest, one node: pool {mp.size()}, outcomes {classes}")
         out["one_node"] = {"txs": len(txs_a), "outcomes": classes, "wall_s": wall,
                            "admitted_per_s": classes["admitted"] / wall, "routes": routes,
-                           "dispatches": sched.log[:], "windows":
+                           "dispatches": dispatch_log(tap), "windows":
                            window_stats(tap.spans("mempool.admit_window"))}
         sched.close()
         log(f"ingest, (a) one node: {len(txs_a)} txs in {wall:.3f} s, outcomes {classes} (each "
@@ -2394,7 +2420,8 @@ def ingest_phase(dev, card, seed: int, kern: dict, chain) -> dict:
             f"{time.perf_counter() - t0:.2f} s")
         for attempt in range(1, TENANT_TRIES + 1):
             res = tenants_leg(dev, streams, counts, f"tenants_{attempt}", tap)
-            device = [d for d in res["dispatches"] if d[0] > 1 and d[2] in ("ladder", "rlc")]
+            device = [d for d in res["dispatches"]
+                      if d[0] > 1 and d[2].split("+")[0] in ("ladder", "rlc")]
             if device:
                 break
             log(f"ingest, (b) run {attempt}: no coalesced dispatch took a device route "
@@ -2413,7 +2440,7 @@ def ingest_phase(dev, card, seed: int, kern: dict, chain) -> dict:
             f"{res['dispatch_by_route']}; windows {res['windows']} [{card}]")
 
         # (c) one node at admission_window 4,096: every full window on a device route
-        out["big_window"] = big_window_leg(dev, senders, seed, counts, tap, card)
+        out["big_window"] = big_window_leg(dev, senders, seed, counts, tap, card, mul_rate)
 
         # (d) blocks from (a)'s mempool with an evidence pool
         out["blocks"] = blocks_phase(mp, dev, seed, counts, card, txs_a)
@@ -2484,7 +2511,7 @@ def tenants_leg(dev, streams, counts, leg: str, tap) -> dict:
                          expected_ingest_outcome(txs, bad, MEMPOOL_SIZE, MAX_TX_BYTES))
             n_ok += sum(o is None for o in got[t][r])
         admitted.append(n_ok)
-    disp = sched.log
+    disp = dispatch_log(tap)
     sigs = sum(d[1] for d in disp)
     by_route = {}
     for _, n, route, ms in disp:
@@ -2499,16 +2526,45 @@ def tenants_leg(dev, streams, counts, leg: str, tap) -> dict:
             "windows": window_stats(tap.spans("mempool.admit_window"))}
 
 
-def big_window_leg(dev, senders, seed: int, counts, tap, card) -> dict:
+def admission_window_check(dev, card, txs, mul_rate: float) -> dict:
+    """`batch_window_check` on one admission window of BIG_WINDOW STX txs
+    (bucket 4,096), laid out by an AdmissionPipeline itself: a node whose
+    scheduler seam keeps the window's batch verifier and verifies
+    nothing. Lane ADMISSION_CHECK_BAD_LANE is the tampered one."""
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+
+    keep = SubmitTimer(keep=True)
+    mp = ingest_node(once_app(KVStoreApp, CheckTxResult), dev, sched=keep, window=BIG_WINDOW,
+                     delay_s=BIG_DELAY_S)
+    try:
+        future_outcomes([mp.submit_tx(tx) for tx in txs])
+    finally:
+        mp.close()
+    if keep.kept is None or keep.kept.count() != len(txs):
+        raise AssertionError(f"admission window check: the window kept holds "
+                             f"{keep.kept.count() if keep.kept else 0} lanes, want {len(txs)}")
+    return batch_window_check(dev, card, keep.kept, "admission window",
+                              ADMISSION_CHECK_BAD_LANE, mul_rate)
+
+
+def big_window_leg(dev, senders, seed: int, counts, tap, card, mul_rate: float) -> dict:
     """(c): one node at admission_window 4,096 (no scheduler), BIG_TXS txs
     in rounds of 4,096 with a reap and update between them; each round is
-    one full window, which must take a device route, with one broken
-    signature a round."""
+    one full window, which must take a device route. Round 0 is clean: one
+    dispatch, on the ladder or on RLC with its all-ok true. Each later
+    round has one broken signature: on RLC, the all-ok is false and the
+    window reruns on the ladder for the blame. First, the kernels at round
+    0's window shapes (`admission_window_check`)."""
     from cometbft_tpu_torch.abci import KVStoreApp
     from cometbft_tpu_torch.abci.types import CheckTxResult
 
     rounds = BIG_TXS // BIG_WINDOW
     txs, _ = ingest_stream(senders, 99, BIG_TXS, {}, seed + 40, dev)
+    t0 = time.perf_counter()
+    check = admission_window_check(dev, card, txs[:BIG_WINDOW], mul_rate)
+    check["seconds"] = time.perf_counter() - t0
+    log(f"admission window check: {check['seconds']:.2f} s")
     mp = ingest_node(once_app(KVStoreApp, CheckTxResult), dev, window=BIG_WINDOW,
                      delay_s=BIG_DELAY_S)
     per_round, t_all = [], 0.0
@@ -2516,7 +2572,7 @@ def big_window_leg(dev, senders, seed: int, counts, tap, card) -> dict:
     try:
         for r in range(rounds):
             part = txs[r * BIG_WINDOW:(r + 1) * BIG_WINDOW]
-            bad_r = {(1_234 + 77 * r) % BIG_WINDOW}  # a broken signature in every round
+            bad_r = {(1_234 + 77 * r) % BIG_WINDOW} if r else set()
             for i in bad_r:
                 part[i] = broken_signature(part[i])
 
@@ -2531,9 +2587,15 @@ def big_window_leg(dev, senders, seed: int, counts, tap, card) -> dict:
                          expected_ingest_outcome(part, bad_r, MEMPOOL_SIZE, MAX_TX_BYTES))
             # a RLC window whose all-ok is false reruns on the ladder for its
             # bitmap (the blame), which counts as a ladder dispatch
-            if routes not in ({"ladder": 1.0}, {"rlc": 1.0}, {"rlc": 1.0, "ladder": 1.0}):
-                raise AssertionError(f"ingest, (c) round {r}: routes {routes}, want one "
-                                     "dispatch on the ladder or RLC (and RLC's blame rerun)")
+            want = ({"ladder": 1.0}, {"rlc": 1.0, "ladder": 1.0}) if bad_r else (
+                {"ladder": 1.0}, {"rlc": 1.0})
+            if routes not in want:
+                raise AssertionError(f"ingest, (c) round {r} ({len(bad_r)} broken signatures): "
+                                     f"routes {routes}, want one of {want}")
+            if "rlc" in routes and not all(counts[f"big_window_{r}"][k] for k in (
+                    "accum_weight", "region_sum", "window_combine")):
+                raise AssertionError(f"ingest, (c) round {r} on RLC: launches "
+                                     f"{counts[f'big_window_{r}']}")
             per_round.append({"routes": routes, "wall_s": wall,
                               "admitted": sum(o is None for o in got)})
             t_all += wall
@@ -2544,10 +2606,12 @@ def big_window_leg(dev, senders, seed: int, counts, tap, card) -> dict:
     if [s["n"] for s in spans] != [BIG_WINDOW] * rounds:
         raise AssertionError(f"ingest, (c): windows {[s['n'] for s in spans]}, want {rounds} "
                              f"of {BIG_WINDOW}")
-    res = {"rounds": per_round, "admitted_per_s": sum(p["admitted"] for p in per_round) / t_all,
+    res = {"window_check": check, "rounds": per_round,
+           "admitted_per_s": sum(p["admitted"] for p in per_round) / t_all,
            "windows": window_stats(spans)}
     log(f"ingest, (c) window {BIG_WINDOW}: {BIG_TXS} txs in {rounds} full windows, routes "
-        f"{[p['routes'] for p in per_round]}, {res['admitted_per_s']:.0f} admitted/s; windows "
+        f"{[p['routes'] for p in per_round]} (round 0 clean), {res['admitted_per_s']:.0f} "
+        f"admitted/s; windows "
         f"{res['windows']} [{card}]")
     return res
 
@@ -3325,7 +3389,7 @@ def main(argv=None) -> int:
     chain = replay.pop("chain")
 
     # ---- phase 8: ingest, blocks with the mempool and evidence, the light client
-    ingest = ingest_phase(dev, card, args.seed, kern, chain)
+    ingest = ingest_phase(dev, card, args.seed, kern, chain, mul_rate)
 
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,

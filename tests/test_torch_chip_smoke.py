@@ -366,6 +366,7 @@ def test_blocks_leg_final_state_matches_the_reference(ingest_world):
     from cometbft_tpu.abci import types as RAT
     from cometbft_tpu.abci.client import AppConns as RAppConns
     from cometbft_tpu.evidence import EvidencePool as REvidencePool
+    from cometbft_tpu.mempool import parse_signed_tx as r_parse_signed_tx
     from cometbft_tpu.state import execution as RX
     from cometbft_tpu.state.types import State as RState
     from cometbft_tpu.storage import MemKV as RMemKV
@@ -396,7 +397,8 @@ def test_blocks_leg_final_state_matches_the_reference(ingest_world):
     rstate = RState.decode(d["genesis"].encode())
     rss = RStateStore(RMemKV())
     rss.save(rstate)
-    rex = RX.BlockExecutor(RAppConns(chip_smoke.once_app(RK.KVStoreApp, RAT.CheckTxResult)),
+    rex = RX.BlockExecutor(RAppConns(chip_smoke.once_app(RK.KVStoreApp, RAT.CheckTxResult,
+                                                         parse=r_parse_signed_tx)),
                            state_store=rss, backend="cpu",
                            evidence_pool=REvidencePool(state_store=rss, chain_id="blocks"))
     for blk_bytes, commit_bytes in d["blocks"]:
@@ -405,3 +407,41 @@ def test_blocks_leg_final_state_matches_the_reference(ingest_world):
         assert RBL.Commit.decode(commit_bytes).encode() == commit_bytes
         rstate = rex.apply_block(rstate, RBL.block_id_for(blk), blk)
     assert rstate.encode() == final
+
+
+def test_dispatch_log_reads_each_scheduler_dispatch_from_the_trace(ingest_world, tmp_path):
+    """`dispatch_log` on a manual scheduler with tracing on: two admission
+    windows' verifiers coalesce into one dispatch, a third passes through
+    alone; each is (requests, signatures, route, ms) in dispatch order."""
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519BatchVerifier, Ed25519PubKey
+    from cometbft_tpu_torch.crypto.sched import VerifyScheduler
+    from cometbft_tpu_torch.mempool import parse_signed_tx
+    from cometbft_tpu_torch.mempool.admission import SIGN_CONTEXT
+    from cometbft_tpu_torch.utils import trace
+
+    _, txs, bad = ingest_world
+    signed = [parse_signed_tx(tx) for i, tx in enumerate(txs) if i not in bad]
+    signed = [p for p in signed if p is not None]
+
+    def window(parsed):
+        bv = Ed25519BatchVerifier(device="cpu")
+        for pub, sig, payload in parsed:
+            bv.add(Ed25519PubKey(pub), SIGN_CONTEXT + payload, sig)
+        return bv
+
+    tap = chip_smoke.TraceTap(tmp_path / "trace.jsonl")
+    trace.configure(str(tap.path))
+    try:
+        sched = VerifyScheduler(device="cpu", manual=True)
+        tap.mark()
+        pending = [sched.submit(window(signed[:5]), tenant="a", source="admission"),
+                   sched.submit(window(signed[5:12]), tenant="b", source="admission")]
+        sched.drain_once()
+        pending.append(sched.submit(window(signed[12:15]), tenant="a", source="admission"))
+        sched.drain_once()
+        assert all(p.result()[0] for p in pending)
+        log = chip_smoke.dispatch_log(tap)
+    finally:
+        trace.disable()
+    assert [d[:3] for d in log] == [(2, 12, "native"), (1, 3, "native")]
+    assert all(isinstance(d[3], float) and d[3] >= 0 for d in log)
