@@ -224,13 +224,48 @@ and never prints its last line):
      the primary-direction evidence, as `expected_light_outcome` says;
      each verify's routes are logged;
    `results.json` key `ingest`;
-9. one JSON line `{"kernels": [...]}` with each kernel's launches,
+9. in-process consensus (`consensus/`, `privval/`, `types/vote_set.py`,
+   `types/proposal.py`) through its entry points, each leg with the launch
+   counts set to 0 just before it and read right after:
+   - (a) the reference's harness at the calibrated dispatch:
+     `InProcessNetwork(4, device="cuda")` with FAST_TIMEOUTS, its threads,
+     timers and speculation; 256 kvstore txs into node 0's mempool
+     (gossip carries them), run until height 6 is committed: every node
+     decided the same block id at every height and has the same app hash
+     at the lowest common height, every tx is in a block and readable from
+     every node's app, no node stopped; logged: the routes (native at 4
+     signatures), the rounds gauge, the mean block interval and the mean
+     ms of each step;
+   - (b) `lockstep_consensus`: 150 validators (`BASELINE.json`'s Cosmos
+     Hub set), one thread, no timers (ManualTickers, `now_ns` from the
+     node's height and round, no speculation, a fixed delivery order,
+     timeouts fired only when every inbox is empty), 256 kvstore txs of
+     100 B a height, heights 1-4, with `E.NATIVE_MAX` at 0 so that every
+     last-commit check runs on the device; at (3, 0) the proposer's block
+     reaches the others with its last commit's signature 77 flipped (the
+     proposal re-signed): every non-proposer must prevote nil, height 3
+     must be decided at round 1, the tampered block validated directly
+     must raise "invalid last commit: invalid signature at index 77", the
+     block hashes, seen commits, app hashes, state bytes and WAL records
+     must equal `expected_consensus_outcome` (the same run on the host,
+     in a second process once the card's is over, held against the
+     reference on the CPU), and `ladder_sub_mul8` must launch once per
+     last-commit check and `decompress` once per check plus once per
+     signer column; the first full last commit's verifier, kept as the
+     path queued it (150 lanes, bucket 256), then goes through
+     `batch_window_check`: `decompress` and `ladder_sub_mul8` bit for bit
+     against their plain versions on every lane of the bucket, ragged
+     launches, and through `submit()` on the ladder every lane true and
+     lane 77 broken and named alone; logged: blocks/s, the ms a height split into vote handling,
+     proposals, checks, apply, signing, WAL and the rest, and the routes;
+   `results.json` key `consensus`;
+10. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-10. the card's name and power limit, then the last line
+11. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -1571,9 +1606,10 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
 
     - `decompress` and `ladder_sub_mul8` over the whole bucket, as the
       ladder route launches them, against their plain versions on 1,027
-      lanes spread over it (first and last included), bit for bit after
-      freeze; ragged launches of the live lanes equal to the bucket's; and
-      every live lane's [8](...) the identity;
+      lanes spread over it (first and last included), or on every lane of
+      a smaller bucket, bit for bit after freeze; ragged launches of the
+      live lanes equal to the bucket's; and every live lane's [8](...) the
+      identity;
     - the window's RLC layout (`slot_depth` rounds, padded to S):
       `accum_weight` against its plain version bit for bit after freeze,
       ragged launches equal to the full one; `region_sum`,
@@ -1584,6 +1620,11 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
     - a copy with lane `bad_lane`'s signature broken, the same way: the
       RLC verdict false, and the blame rerun on the ladder names that
       lane and no other.
+
+    A batch below RLC_MIN never takes that route, so for it the RLC items
+    give way to the batch's own route: a copy through
+    `submit()` with the NATIVE_MAX seam at 0 takes the ladder and verifies
+    every lane, and a copy with lane `bad_lane` broken names it alone.
     """
     from cometbft_tpu_torch.crypto import ed25519 as E
     from cometbft_tpu_torch.ops import curve as C
@@ -1608,8 +1649,9 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
     k_dig = SC.digits_from_bytes(rsk[:, 64:]).contiguous()
     sign, y = C._split_encoding(rsk[:, :32])
     sign_row = sign[None, :].contiguous()
-    lanes = torch.linspace(0, b - 1, LADDER_CHECK_LANES, device=dev).round().long()
-    if len(set(lanes.tolist())) != LADDER_CHECK_LANES:
+    n_check = min(LADDER_CHECK_LANES, b)
+    lanes = torch.linspace(0, b - 1, n_check, device=dev).round().long()
+    if len(set(lanes.tolist())) != n_check:
         raise AssertionError(f"{what} check: the sampled lanes repeat")
 
     valid, x, t = K.decompress(y, sign_row)
@@ -1621,7 +1663,7 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
     if not all(torch.equal(g, f[:, :n]) for g, f in zip(part, (valid, x, t))):
         raise AssertionError(f"decompress: lanes differ between B={n} and B={b} launches")
     if mism or not bool((valid[0, :n] != 0).all()) or not bool(ok_a[:n].all()):
-        raise AssertionError(f"decompress at B={b}: {mism} of {LADDER_CHECK_LANES} sampled lanes "
+        raise AssertionError(f"decompress at B={b}: {mism} of {n_check} sampled lanes "
                              "disagree with the plain version, or a live R or A is invalid")
     out["decompress"] = {"batch": b, "mismatches": mism, "max_abs_err": max(ex, et),
                          "ms": cuda_ms(lambda: K.decompress(y, sign_row), 10),
@@ -1641,7 +1683,7 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
         raise AssertionError(f"ladder_sub_mul8: lanes differ between B={n} and B={b} launches")
     ident = F.is_zero(sub[0, :, :n]) & F.eq(sub[1, :, :n], sub[2, :, :n])
     if mism or not bool(ident.all()):
-        raise AssertionError(f"ladder_sub_mul8 at B={b}: {mism} of {LADDER_CHECK_LANES} sampled "
+        raise AssertionError(f"ladder_sub_mul8 at B={b}: {mism} of {n_check} sampled "
                              f"lanes disagree with the plain version; {int((~ident).sum())} live "
                              "lanes do not verify")
     out["ladder_sub_mul8"] = {
@@ -1650,6 +1692,33 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
         "bound_ms": bound_ms("ladder_sub_mul8", b, (8 * 88 + 2 * 256 + 264) * b
                              + base.numel() * 4)}
     del rsk, s_dig, k_dig, y, x, t, valid, a4, r4, sub, part, one, r_pt, neg_a, ok_a
+    if n < E.RLC_MIN:
+        saved = E.NATIVE_MAX
+        E.NATIVE_MAX = 0
+        try:
+            for lane in (None, bad_lane):
+                copy = E.Ed25519BatchVerifier(dev)
+                copy.absorb(bv)
+                if lane is not None:
+                    copy._sig_buf[64 * lane] ^= 1
+                pending = copy.submit()
+                ok, bits = pending.result()
+                wrong = [i for i, v in enumerate(bits) if not v]
+                if (pending._path != "ladder" or len(bits) != n or ok != (lane is None)
+                        or wrong != ([] if lane is None else [lane])):
+                    raise AssertionError(f"{what} through submit(): route {pending._path}, "
+                                         f"verdict {ok}, false lanes {wrong[:20]}, want "
+                                         f"{[] if lane is None else [lane]}")
+        finally:
+            E.NATIVE_MAX = saved
+        out["tampered"] = {"lane": bad_lane, "route": "ladder"}
+        log(f"{what} check, {n} lanes at bucket {b}: decompress and ladder_sub_mul8 exact on "
+            f"all {n_check} lanes against the plain versions, ragged B={n} launches equal, "
+            f"every live lane verifies; through submit() on the ladder every lane true, lane "
+            f"{bad_lane} broken named alone. Times ms (bound): " + ", ".join(
+                f"{k} {out[k]['ms']:.4f} ({out[k]['bound_ms']:.4f})"
+                for k in ("decompress", "ladder_sub_mul8")) + f" [{card}]")
+        return out
 
     # the RLC route's inputs: the window's layout, as `_launch_rlc` packs it
     for tries in range(1, REPLAY_RLC_TRIES + 1):
@@ -1729,7 +1798,7 @@ def batch_window_check(dev, card, bv, what: str, bad_lane: int, mul_rate: float)
                              f"[{bad_lane}]")
     out["tampered"] = {"lane": bad_lane, "submits": submits}
     log(f"{what} check, {n} lanes at bucket {b}: decompress and ladder_sub_mul8 exact on "
-        f"{LADDER_CHECK_LANES} lanes against the plain versions, ragged B={n} launches equal, "
+        f"{n_check} lanes against the plain versions, ragged B={n} launches equal, "
         f"every live lane verifies; accum_weight at S={s_pad} ({n_pts} points, layout accepted "
         f"on try {tries}) exact, ragged {RAGGED_LANES} equal; region_sum, window_combine and "
         f"the B = 1 tail exact, verdict true; through submit() on RLC: all-ok true with no "
@@ -2762,6 +2831,526 @@ def light_phase(dev, seed: int, counts, card, chain) -> dict:
     return res
 
 
+# ---- phase 9: in-process consensus
+
+NET_NODES = 4  # the reference's InProcessNetwork harness
+NET_TXS = 256
+NET_HEIGHT = 6
+NET_TIMEOUT_S = 120.0
+LOCKSTEP_CHAIN = "lockstep-chain"
+LOCKSTEP_VALIDATORS = 150  # BASELINE.json's Cosmos Hub set
+LOCKSTEP_HEIGHTS = 4
+LOCKSTEP_TXS = 256  # kvstore txs a height, ~100 B each, the same on every node
+LOCKSTEP_TX_BYTES = 100
+LOCKSTEP_POWER = 10
+LOCKSTEP_BAD = (3, 77)  # (height, last-commit index) of the tampered round-0 proposal
+LOCKSTEP_ROUND_NS = 10_000_000  # now_ns: T0 + height x 1 s + round x 10 ms
+LOCKSTEP_MAX_FIRINGS = 64  # timeout firings before the network counts as stalled
+# what a lockstep run gives byte for byte on any device and in either package
+LOCKSTEP_OUTCOME_KEYS = ("block_hashes", "rounds", "app_hashes", "seen_commits", "state",
+                         "wal", "proposers", "nil_prevotes", "tamper_check")
+
+
+def consensus_modules(package: str = "cometbft_tpu_torch"):
+    """The modules a lockstep network is built from, of the port by
+    default; the tests pass the reference's package name to drive it
+    through the same function."""
+    import importlib
+    from types import SimpleNamespace
+
+    names = {"ed": "crypto.ed25519", "types": "types", "block": "types.block",
+             "proposal": "types.proposal", "execution": "state.execution",
+             "storage": "storage", "client": "abci.client", "kvstore": "abci.kvstore",
+             "file_pv": "privval.file_pv", "wal": "consensus.wal", "ticker": "consensus.ticker",
+             "state": "consensus.state"}
+    return SimpleNamespace(**{k: importlib.import_module(f"{package}.{v}")
+                              for k, v in names.items()})
+
+
+def lockstep_txs(height: int, n: int = LOCKSTEP_TXS) -> list[bytes]:
+    """The fixed kvstore `key=value` txs of `height`, LOCKSTEP_TX_BYTES each."""
+    out = []
+    for i in range(n):
+        key = b"h%d-k%04d=" % (height, i)
+        out.append(key + b"v" * (LOCKSTEP_TX_BYTES - len(key)))
+    return out
+
+
+def lockstep_consensus(m, n_vals: int, heights: int, home, exec_kw: dict,
+                       bad=LOCKSTEP_BAD, seed: int = 0, n_txs: int = LOCKSTEP_TXS) -> dict:
+    """A lockstep network: `n_vals` ConsensusStates of the package `m`
+    (`consensus_modules`) driven from this thread with no timers, each
+    with its own KVStore app, stores, WAL and FilePV (from a seed-made
+    Ed25519PrivKey), its executor made with `exec_kw` ({"device": ...} for
+    the port, {"backend": ...} for the reference). Tickers are
+    ManualTickers; `now_ns` is T0 (the genesis time) + height x 1 s +
+    round x 10 ms of the node; no speculation; every height proposes
+    `lockstep_txs(height)`. Messages go out in a fixed order: each node in
+    turn processes what its inbox holds, until every inbox is empty; then
+    each node's pending timeout (the newest schedule since its last
+    firing, as TimeoutTicker keeps it) fires. At bad = (height, index),
+    round 0, the proposer's block reaches the others with its last
+    commit's signature at `index` flipped (`last_commit_hash` recomputed,
+    the proposal re-signed with the proposer's key outside its FilePV), and
+    that block is validated once more against a non-proposer's state
+    (`tamper_check`). Runs until every node committed `heights`; returns
+    the outcome (LOCKSTEP_OUTCOME_KEYS, each node's equal where it must
+    be), the wall seconds at which the last node committed each height
+    (`height_s`; `seconds` is the last of them) and the seconds spent
+    collecting the outcome after (`collect_s`)."""
+    import dataclasses
+    import functools
+
+    os.makedirs(home, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    privs = [m.ed.Ed25519PrivKey(bytes(r))
+             for r in rng.integers(0, 256, (n_vals, 32), dtype=np.uint8)]
+    vals = m.types.ValidatorSet([m.types.Validator.from_pub_key(p.pub_key(), LOCKSTEP_POWER)
+                                 for p in privs])
+    index_of = {v.address: i for i, v in enumerate(vals.validators)}
+    genesis = m.execution.make_genesis_state(LOCKSTEP_CHAIN, vals)
+    t0_ns = genesis.last_block_time.unix_ns()
+    votes, held, out = {}, {}, {"tamper_check": None, "proposers": {}}
+    css = []
+
+    def deliver(i, msg):
+        for j, cs in enumerate(css):
+            if j != i:
+                cs.send(msg, f"node{i}")
+
+    def tamper(prop, bb, priv):
+        blk = m.block.Block.decode(bb.block_bytes)
+        lc, idx = blk.last_commit, bad[1]
+        sigs = list(lc.signatures)
+        c = sigs[idx]
+        sigs[idx] = m.block.CommitSig(c.block_id_flag, c.validator_address, c.timestamp,
+                                      bytes([c.signature[0] ^ 1]) + c.signature[1:])
+        commit = m.block.Commit(lc.height, lc.round, lc.block_id, sigs)
+        blk = m.block.Block(header=dataclasses.replace(blk.header,
+                                                       last_commit_hash=commit.hash()),
+                            data=blk.data, evidence=blk.evidence, last_commit=commit)
+        p = m.proposal.Proposal(height=prop.height, round=prop.round, pol_round=prop.pol_round,
+                                block_id=m.block.block_id_for(blk), timestamp=prop.timestamp)
+        p.signature = priv.sign(p.sign_bytes(LOCKSTEP_CHAIN))
+        return p, m.wal.BlockBytesMessage(bb.height, bb.round, blk.encode()), blk
+
+    def broadcast(i, msg):
+        if isinstance(msg, m.state.VoteMessage):
+            v = msg.vote
+            votes[(v.height, v.round, int(v.type), v.validator_index)] = v.is_nil()
+        elif isinstance(msg, m.state.ProposalMessage):
+            p = msg.proposal
+            out["proposers"][f"{p.height}/{p.round}"] = index_of[privs[i].pub_key().address()]
+            if bad is not None and (p.height, p.round) == (bad[0], 0):
+                held[i] = p
+                return
+        elif isinstance(msg, m.wal.BlockBytesMessage) and i in held:
+            p, bb, blk = tamper(held.pop(i), msg, privs[i])
+            other = css[(i + 1) % len(css)]
+            out["tamper_check"] = outcome_of(
+                lambda: m.execution.validate_block(other.sm_state, blk, **exec_kw))
+            deliver(i, m.state.ProposalMessage(p))
+            deliver(i, bb)
+            return
+        deliver(i, msg)
+
+    for i, priv in enumerate(privs):
+        store = m.storage.BlockStore(m.storage.MemKV())
+        ex = m.execution.BlockExecutor(
+            m.client.AppConns(m.kvstore.KVStoreApp()),
+            state_store=m.storage.StateStore(m.storage.MemKV()), block_store=store, **exec_kw)
+        box = []
+        cs = m.state.ConsensusState(
+            chain_id=LOCKSTEP_CHAIN, sm_state=genesis.copy(), executor=ex, block_store=store,
+            privval=m.file_pv.FilePV(priv, None, os.path.join(home, f"pv{i}.state.json")),
+            wal=m.wal.WAL(os.path.join(home, f"wal{i}")),
+            broadcast=functools.partial(broadcast, i),
+            tx_source=lambda box=box: lockstep_txs(box[0].height, n_txs), name=f"node{i}",
+            now_ns=lambda box=box: (t0_ns + box[0].height * 1_000_000_000
+                                    + box[0].round * LOCKSTEP_ROUND_NS),
+            ticker_factory=m.ticker.ManualTicker, speculative=False)
+        box.append(cs)
+        css.append(cs)
+
+    def pump():
+        moved = True
+        while moved:
+            moved = False
+            for cs in css:
+                for _ in range(cs.inbox.qsize()):
+                    cs._process(cs.inbox.get_nowait())
+                    moved = True
+
+    fired = [0] * len(css)
+
+    def fire_timeouts() -> bool:
+        any_fired = False
+        for k, cs in enumerate(css):
+            sched = cs.ticker.scheduled[fired[k]:]
+            if not sched:
+                continue
+            pending = sched[0]
+            for ti in sched[1:]:
+                if (pending.height, pending.round, pending.step) <= (ti.height, ti.round,
+                                                                      ti.step):
+                    pending = ti
+            fired[k] = len(cs.ticker.scheduled)
+            cs._on_ticker_timeout(pending)
+            any_fired = True
+        return any_fired
+
+    t_start = time.perf_counter()
+    committed, height_s = 0, []
+    for cs in css:
+        cs._schedule_round0_start()
+    for _ in range(LOCKSTEP_MAX_FIRINGS):
+        pump()
+        low = min(cs.sm_state.last_block_height for cs in css)
+        while committed < low:
+            committed += 1
+            height_s.append(time.perf_counter() - t_start)
+        if low >= heights:
+            break
+        if not fire_timeouts():
+            raise AssertionError(f"lockstep network stalled at height {low + 1}")
+    else:
+        raise AssertionError(f"lockstep network did not reach height {heights}")
+    for cs in css:
+        cs.wal.close()
+
+    stores = [cs.block_store for cs in css]
+    for h in range(1, heights + 1):
+        if len({cs.decided[h].key() for cs in css}) != 1:
+            raise AssertionError(f"lockstep: the nodes decided different blocks at height {h}")
+    states = {cs.sm_state.encode() for cs in css}
+    if len(states) != 1:
+        raise AssertionError("lockstep: the nodes' final states differ")
+
+    def app_hash_after(store, h):
+        blk = store.load_block(h + 1)
+        return (blk.header.app_hash if blk is not None else css[0].sm_state.app_hash).hex()
+
+    app_hashes = [{app_hash_after(s, h) for s in stores} for h in range(1, heights + 1)]
+    if any(len(a) != 1 for a in app_hashes):
+        raise AssertionError(f"lockstep: app hashes differ between nodes: {app_hashes}")
+    wal_digest = hashlib.sha256()
+    for i in range(len(css)):
+        wal = m.wal.WAL(os.path.join(home, f"wal{i}"))
+        for tm in wal.read_all():
+            wal_digest.update(m.wal._encode_msg(tm.msg))
+        wal.close()
+    bad_h = bad[0] if bad is not None else None
+    out.update(
+        block_hashes=[stores[0].load_block(h).hash().hex() for h in range(1, heights + 1)],
+        rounds=[stores[0].load_seen_commit(h).round for h in range(1, heights + 1)],
+        app_hashes=[a.pop() for a in app_hashes],
+        seen_commits=[hashlib.sha256(b"".join(s.load_seen_commit(h).encode()
+                                              for s in stores)).hexdigest()
+                      for h in range(1, heights + 1)],
+        state=hashlib.sha256(states.pop()).hexdigest(),
+        wal=wal_digest.hexdigest(),
+        nil_prevotes=sorted(k[3] for k, nil in votes.items()
+                            if nil and (k[0], k[1], k[2]) == (bad_h, 0, 1)),
+        height_s=height_s, seconds=height_s[-1],
+        collect_s=time.perf_counter() - t_start - height_s[-1], validators=len(css))
+    return out
+
+
+def expected_consensus_outcome(n_vals: int, heights: int, home, bad=LOCKSTEP_BAD,
+                               seed: int = 0, n_txs: int = LOCKSTEP_TXS) -> dict:
+    """The lockstep network's outcome (LOCKSTEP_OUTCOME_KEYS) on the host:
+    the port at device "cpu" with the default dispatch (the native engine
+    at these commit sizes). tests/test_torch_chip_smoke.py holds it against
+    the reference's modules on the CPU."""
+    got = lockstep_consensus(consensus_modules(), n_vals, heights, home, {"device": "cpu"},
+                             bad=bad, seed=seed, n_txs=n_txs)
+    return {k: got[k] for k in LOCKSTEP_OUTCOME_KEYS}
+
+
+def quiet_expected_consensus_outcome(n_vals: int, heights: int, home: str, bad, seed: int,
+                                     n_txs: int):
+    """(`expected_consensus_outcome`, its wall seconds) with the nodes' log
+    records dropped: phase 9 runs it in a second process."""
+    from cometbft_tpu_torch.utils import log as L
+
+    L.set_sink(lambda level, msg, fields: None)
+    t0 = time.perf_counter()
+    out = expected_consensus_outcome(n_vals, heights, home, bad=bad, seed=seed, n_txs=n_txs)
+    return out, time.perf_counter() - t0
+
+
+class SplitTimer:
+    """Exclusive wall time of wrapped functions, by name: a call's time
+    goes to its name less the time of wrapped calls inside it. One
+    thread. `restore()` puts the originals back."""
+
+    def __init__(self):
+        self.ms, self.calls, self._stack, self._undo = {}, {}, [], []
+
+    def wrap(self, owner, attr: str, name: str, on_call=None) -> None:
+        import functools
+
+        fn = getattr(owner, attr)
+
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            if on_call is not None:
+                on_call(*args, **kwargs)
+            self._stack.append(0.0)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t
+                inner = self._stack.pop()
+                self.ms[name] = self.ms.get(name, 0.0) + (dt - inner) * 1e3
+                self.calls[name] = self.calls.get(name, 0) + 1
+                if self._stack:
+                    self._stack[-1] += dt
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+
+def histogram_delta(before: dict, after: dict) -> dict:
+    """{labels: (count, sum)} of what a histogram gained between two
+    `snapshot()`s."""
+    out = {}
+    for k, v in after.items():
+        b = before.get(k, {"count": 0, "sum": 0.0})
+        if v["count"] != b["count"]:
+            out[k] = (v["count"] - b["count"], v["sum"] - b["sum"])
+    return out
+
+
+def net_leg(dev, card, counts: dict, home) -> dict:
+    """(a): the reference's harness, `InProcessNetwork(4, device=dev)` with
+    FAST_TIMEOUTS, its threads and speculation: NET_TXS kvstore txs into
+    node 0's mempool (gossip carries them), run to NET_HEIGHT."""
+    from cometbft_tpu_torch.consensus.net import FAST_TIMEOUTS, InProcessNetwork
+    from cometbft_tpu_torch.utils.metrics import consensus_metrics
+
+    txs = [b"net-k%03d=v%03d" % (i, i) for i in range(NET_TXS)]
+    cm = consensus_metrics()
+    before = {"interval": cm.block_interval_seconds.snapshot(),
+              "steps": cm.step_duration_seconds.snapshot()}
+
+    home.mkdir(parents=True, exist_ok=True)
+
+    def run():
+        net = InProcessNetwork(NET_NODES, str(home), timeouts=FAST_TIMEOUTS, device=dev)
+        net.start()
+        try:
+            t0 = time.perf_counter()
+            for tx in txs:
+                net.nodes[0].mempool.check_tx(tx)
+            reached = net.wait_for_height(NET_HEIGHT + 1, timeout=NET_TIMEOUT_S)
+            deadline = time.monotonic() + 30
+            while any(n.mempool.size() for n in net.nodes) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            wall = time.perf_counter() - t0
+            stopped = [n.idx for n in net.nodes if n.cs._stopped.is_set()]
+        finally:
+            net.stop()
+        return net, reached, wall, stopped
+
+    (net, reached, wall, stopped), routes = counted_leg(counts, "consensus", "net", run)
+    if not reached or stopped:
+        raise AssertionError(f"consensus, (a): height {NET_HEIGHT} reached {reached}, nodes "
+                             f"stopped {stopped} ({[n.cs.halt_error for n in net.nodes]})")
+    top = min(len(n.cs.decided) for n in net.nodes)
+    for h in range(1, top + 1):
+        if len({n.cs.decided[h].key() for n in net.nodes}) != 1:
+            raise AssertionError(f"consensus, (a): the nodes decided different blocks at {h}")
+    low = min(n.cs.sm_state.last_block_height for n in net.nodes)
+
+    def app_hash_at(n):
+        if n.cs.sm_state.last_block_height == low:
+            return n.cs.sm_state.app_hash
+        return n.block_store.load_block(low + 1).header.app_hash
+
+    if len({app_hash_at(n) for n in net.nodes}) != 1:
+        raise AssertionError(f"consensus, (a): app hashes differ at height {low}")
+    for n in net.nodes:
+        committed = {tx for h in range(1, n.block_store.height() + 1)
+                     for tx in n.block_store.load_block(h).data.txs}
+        missing = [tx for tx in txs if tx not in committed
+                   or n.app.query("", tx.partition(b"=")[0]).value != tx.partition(b"=")[2]]
+        if missing:
+            raise AssertionError(f"consensus, (a): node {n.idx} lacks {len(missing)} txs, e.g. "
+                                 f"{missing[:3]}")
+    steps = histogram_delta(before["steps"], cm.step_duration_seconds.snapshot())
+    interval = histogram_delta(before["interval"], cm.block_interval_seconds.snapshot())
+    count, total = interval.get((), (0, 0.0))
+    out = {"nodes": NET_NODES, "txs": NET_TXS, "height": low, "wall_s": wall,
+           "blocks_per_s": low / wall, "routes": routes,
+           "rounds": cm.rounds.values().get((), 0.0),
+           "block_interval_ms": total / count * 1e3 if count else None,
+           "step_ms": {k[0]: round(s / c * 1e3, 3) for k, (c, s) in sorted(steps.items())},
+           "step_calls": {k[0]: c for k, (c, _) in sorted(steps.items())}}
+    log(f"consensus, (a) {NET_NODES} nodes on {dev}: {NET_TXS} txs committed and read back on "
+        f"every node, height {low} in {wall:.3f} s ({out['blocks_per_s']:.2f} blocks/s), same "
+        f"block ids and app hash; last-commit checks and votes by route {routes}; rounds gauge "
+        f"{out['rounds']:.0f}, block interval {out['block_interval_ms']:.1f} ms, mean ms by "
+        f"step {out['step_ms']} [{card}]")
+    return out
+
+
+def lockstep_leg(dev, card, counts: dict, seed: int, home, mul_rate: float) -> dict:
+    """(b): the lockstep network at LOCKSTEP_VALIDATORS validators to
+    LOCKSTEP_HEIGHTS on `dev` with the NATIVE_MAX seam at 0, so that every
+    last-commit check runs on the device routes, against
+    `expected_consensus_outcome` (the same run on the host, in a second
+    process started once the card's run is over, so that nothing runs
+    beside the timed one). The first full last commit's batch verifier is
+    kept as the path queued it and held against the plain versions
+    (`batch_window_check`) at its bucket, with lane LOCKSTEP_BAD[1] the
+    tampered one."""
+    import concurrent.futures
+    import multiprocessing
+
+    from cometbft_tpu_torch.consensus import state as S
+    from cometbft_tpu_torch.consensus import wal as W
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.privval import file_pv as PV
+    from cometbft_tpu_torch.state import execution as X
+
+    kept = []
+    submit = E.Ed25519BatchVerifier.submit
+
+    def keep_first(bv):
+        if not kept and bv.count() == LOCKSTEP_VALIDATORS:
+            copy = E.Ed25519BatchVerifier(dev)
+            copy.absorb(bv)
+            kept.append(copy)
+        return submit(bv)
+
+    columns = []
+    timer = SplitTimer()
+    timer.wrap(X, "verify_commit", "checks", on_call=lambda chain, vals, bid, h, commit, **kw:
+               columns.append(tuple(not s.is_absent() for s in commit.signatures)))
+    timer.wrap(X.BlockExecutor, "apply_block", "apply")
+    timer.wrap(S.ConsensusState, "_handle_vote", "votes")
+    timer.wrap(S.ConsensusState, "_handle_proposal", "proposal")
+    timer.wrap(S.ConsensusState, "_handle_block_bytes", "proposal")
+    timer.wrap(PV.FilePV, "_sign_vote_inner", "sign")
+    timer.wrap(PV.FilePV, "sign_proposal", "sign")
+    timer.wrap(W.WAL, "write", "wal")
+    timer.wrap(W.WAL, "write_sync", "wal")
+    saved = E.NATIVE_MAX
+    E.NATIVE_MAX = 0
+    E.Ed25519BatchVerifier.submit = keep_first
+    try:
+        got, routes = counted_leg(
+            counts, "consensus", "lockstep",
+            lambda: lockstep_consensus(consensus_modules(), LOCKSTEP_VALIDATORS,
+                                       LOCKSTEP_HEIGHTS, home / "card", {"device": dev},
+                                       bad=LOCKSTEP_BAD, seed=seed, n_txs=LOCKSTEP_TXS),
+            need=("decompress", "ladder_sub_mul8"))
+    finally:
+        E.NATIVE_MAX = saved
+        E.Ed25519BatchVerifier.submit = submit
+        timer.restore()
+    # the host's run, in a spawned process (the native packer's threads
+    # forbid a fork) with the card idle
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        want, host_s = pool.submit(quiet_expected_consensus_outcome, LOCKSTEP_VALIDATORS,
+                                   LOCKSTEP_HEIGHTS, str(home / "host"), LOCKSTEP_BAD, seed,
+                                   LOCKSTEP_TXS).result()
+    diff = [k for k in LOCKSTEP_OUTCOME_KEYS if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"consensus, (b): {diff} differ from expected_consensus_outcome: "
+                             f"{[(got[k], want[k]) for k in diff]}")
+    bad_h, bad_i = LOCKSTEP_BAD
+    proposer = got["proposers"][f"{bad_h}/0"]
+    want_check = ("BlockValidationError",
+                  f"invalid last commit: invalid signature at index {bad_i}")
+    if got["tamper_check"] != want_check:
+        raise AssertionError(f"consensus, (b): the tampered block gave {got['tamper_check']}")
+    if got["nil_prevotes"] != [i for i in range(LOCKSTEP_VALIDATORS) if i != proposer]:
+        raise AssertionError(f"consensus, (b): nil prevotes at ({bad_h}, 0): "
+                             f"{got['nil_prevotes']}")
+    if got["rounds"][bad_h - 1] != 1 or any(r for h, r in enumerate(got["rounds"], 1)
+                                            if h != bad_h):
+        raise AssertionError(f"consensus, (b): decided rounds {got['rounds']}")
+    c = counts["lockstep"]
+    checks = timer.calls["checks"]
+    if not (c["ladder_sub_mul8"] == checks == routes.get("ladder")):
+        raise AssertionError(f"consensus, (b): {c['ladder_sub_mul8']} ladder launches for "
+                             f"{checks} last-commit checks (routes {routes})")
+    if c["decompress"] != checks + len(set(columns)):
+        raise AssertionError(f"consensus, (b): {c['decompress']} decompress launches for "
+                             f"{checks} checks and {len(set(columns))} signer columns")
+    if not kept:
+        raise AssertionError(f"consensus, (b): no last commit of {LOCKSTEP_VALIDATORS} lanes "
+                             "was submitted")
+    window = batch_window_check(dev, card, kept[0], "consensus last commit", bad_i, mul_rate)
+    per_node = 3 * (LOCKSTEP_HEIGHTS - 1) + 1  # 3 a height from 2 on, 1 more in round 0 of bad_h
+    wall = got["seconds"]
+    split = {k: v / LOCKSTEP_HEIGHTS for k, v in timer.ms.items()}
+    split["other"] = wall * 1e3 / LOCKSTEP_HEIGHTS - sum(split.values())
+    out = {"validators": LOCKSTEP_VALIDATORS, "heights": LOCKSTEP_HEIGHTS, "wall_s": wall,
+           "collect_s": got["collect_s"], "host_expected_s": host_s,
+           "blocks_per_s": LOCKSTEP_HEIGHTS / wall,
+           "height_s": got["height_s"], "ms_a_height": split, "calls": timer.calls,
+           "checks": checks, "predicted_checks": LOCKSTEP_VALIDATORS * per_node + 1,
+           "signer_columns": len(set(columns)), "routes": routes, "rounds": got["rounds"],
+           "tamper_check": got["tamper_check"], "proposer_at_bad": proposer,
+           "window_check": window,
+           "outcome": {k: got[k] for k in LOCKSTEP_OUTCOME_KEYS if k != "nil_prevotes"}}
+    log(f"consensus, (b) lockstep {LOCKSTEP_VALIDATORS} validators on {dev}, NATIVE_MAX 0: "
+        f"heights 1-{LOCKSTEP_HEIGHTS} in {wall:.3f} s alone ({out['blocks_per_s']:.3f} "
+        f"blocks/s; the host's expected run after it {host_s:.3f} s), decided rounds "
+        f"{got['rounds']}, "
+        f"the state, app hashes, block hashes, seen commits and WALs equal "
+        f"expected_consensus_outcome; ({bad_h}, 0): {len(got['nil_prevotes'])} nil prevotes "
+        f"(all but the proposer, index "
+        f"{proposer}), the tampered block {got['tamper_check']}; {checks} last-commit checks "
+        f"({LOCKSTEP_VALIDATORS} x {per_node} + 1 direct predicted) by route {routes}, "
+        f"ladder {c['ladder_sub_mul8']}, decompress {c['decompress']} ({len(set(columns))} "
+        f"signer column); ms a height {({k: round(v, 1) for k, v in split.items()})} [{card}]")
+    return out
+
+
+def consensus_phase(dev, card, seed: int, kern: dict, mul_rate: float) -> dict:
+    """Phase 9: in-process consensus on the card, (a) the threaded harness
+    at the calibrated dispatch and (b) the lockstep network with every
+    last commit checked on the device; each leg with the launch counts set
+    to 0 just before it and read right after. The nodes' log records are
+    counted, not printed."""
+    import tempfile
+
+    from cometbft_tpu_torch.utils import log as L
+
+    out, counts = {"card": card}, {}
+    finalized = []
+    sink = L._config.sink
+    L.set_sink(lambda level, msg, fields: finalized.append(fields.get("node"))
+               if msg == "finalized block" else None)
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["net"] = net_leg(dev, card, counts, Path(tmp) / "net")
+            out["lockstep"] = lockstep_leg(dev, card, counts, seed, Path(tmp), mul_rate)
+    finally:
+        L.set_sink(sink)
+    out["finalized_records"] = len(finalized)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"consensus: phase 9 took {out['seconds']:.1f} s, {len(finalized)} 'finalized block' "
+        f"records [{card}]")
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["consensus"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["consensus"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3391,15 +3980,18 @@ def main(argv=None) -> int:
     # ---- phase 8: ingest, blocks with the mempool and evidence, the light client
     ingest = ingest_phase(dev, card, args.seed, kern, chain, mul_rate)
 
+    # ---- phase 9: in-process consensus
+    consensus = consensus_phase(dev, card, args.seed, kern, mul_rate)
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
                    rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
-                   consumers=consumers, replay=replay, ingest=ingest)
+                   consumers=consumers, replay=replay, ingest=ingest, consensus=consensus)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phase 9 and 10: the kernel line, the card, the contract line
+    # ---- phases 10 and 11: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

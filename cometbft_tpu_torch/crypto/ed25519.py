@@ -1,4 +1,4 @@
-"""Ed25519 public keys and the GPU batch verifier.
+"""Ed25519 keys and the GPU batch verifier.
 
 Twin of the commit-verify subset of `cometbft_tpu/crypto/ed25519.py`.
 `Ed25519BatchVerifier.submit()` has three routes. A batch of fewer than
@@ -87,10 +87,11 @@ from ..utils.metrics import crypto_metrics
 from . import ed25519_ref as ref
 from . import native
 from . import rlc as _rlc
-from .keys import BatchVerifier, PubKey, tmhash20
+from .keys import BatchVerifier, PrivKey, PubKey, tmhash20
 
 KEY_TYPE = "tendermint/PubKeyEd25519"
 PUB_KEY_SIZE = 32
+PRIV_KEY_SIZE = 64
 SIG_SIZE = 64
 
 # Padded batch buckets (the reference's): 10240 exists for the
@@ -344,6 +345,39 @@ class Ed25519PubKey(PubKey):
 
     def __repr__(self):
         return f"Ed25519PubKey({self._b.hex()[:16]}…)"
+
+
+class Ed25519PrivKey(PrivKey):
+    """A validator's signing key. Signing and the public key go through the
+    native engine, which is required: there is no Python fallback."""
+
+    __slots__ = ("_seed", "_pub")
+
+    def __init__(self, key_bytes: bytes):
+        if len(key_bytes) == 32:
+            self._seed = bytes(key_bytes)
+            self._pub = native.pubkey(self._seed)
+        elif len(key_bytes) == PRIV_KEY_SIZE:
+            self._seed = bytes(key_bytes[:32])
+            self._pub = bytes(key_bytes[32:])
+        else:
+            raise ValueError("ed25519 privkey must be 32 (seed) or 64 bytes")
+
+    @classmethod
+    def generate(cls) -> "Ed25519PrivKey":
+        return cls(ref.generate_seed())
+
+    def sign(self, msg: bytes) -> bytes:
+        return native.sign(self._seed, self._pub, msg)
+
+    def pub_key(self) -> Ed25519PubKey:
+        return Ed25519PubKey(self._pub)
+
+    def bytes(self) -> bytes:
+        return self._seed + self._pub
+
+    def type_tag(self) -> str:
+        return KEY_TYPE
 
 
 def _resolve_device(device) -> torch.device:

@@ -1,8 +1,6 @@
-"""Core crypto interfaces the verify path needs: tmhash, PubKey and
-BatchVerifier.
+"""Core crypto interfaces: tmhash, PubKey, PrivKey and BatchVerifier.
 
-The port's own copy of the subset of `cometbft_tpu/crypto/keys.py` that
-the commit-verify path and the consensus types consume. Behavior parity: reference
+The port's own copy of `cometbft_tpu/crypto/keys.py`. Behavior parity: reference
 crypto/crypto.go:22-54 (interfaces) and crypto/tmhash (SHA-256 with
 20-byte truncated addresses).
 """
@@ -45,6 +43,20 @@ class PubKey(ABC):
 
     def __hash__(self):
         return hash((self.type_tag(), self.bytes()))
+
+
+class PrivKey(ABC):
+    @abstractmethod
+    def sign(self, msg: bytes) -> bytes: ...
+
+    @abstractmethod
+    def pub_key(self) -> PubKey: ...
+
+    @abstractmethod
+    def bytes(self) -> bytes: ...
+
+    @abstractmethod
+    def type_tag(self) -> str: ...
 
 
 class BatchVerifier(ABC):

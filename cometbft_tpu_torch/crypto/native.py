@@ -1,8 +1,8 @@
 """ctypes binding for the C++ Ed25519 host engine (`csrc/host/`).
 
-Twin of the Ed25519 half of `cometbft_tpu/crypto/native.py`: single and
-batch verification on the host's cores, the R||S||k row packer of the
-ladder route (8-wide multi-buffer SHA-512 where the host has AVX-512)
+Twin of the Ed25519 half of `cometbft_tpu/crypto/native.py`: signing,
+single and batch verification on the host's cores, the R||S||k row
+packer of the ladder route (8-wide multi-buffer SHA-512 where the host has AVX-512)
 and the RLC route's layout packer (`rlc_packer.inc`, a worker pool); and
 the host control plane's SHA-256 and merkle root (`merkle_native.inc`)
 and columnar commit codec (`commit_codec.inc`: `commit_parse`,
@@ -19,7 +19,8 @@ this host (the compiler's predefined macros for it: code built for one
 CPU's instruction set does not run on every x86 CPU), so an unchanged
 tree on the same host loads it at once. Without `g++`, or when the build fails, the
 library is absent: `available()` is False, `build_log` says why, and the
-callers take their Python paths (hashlib, `ed25519_ref`, numpy).
+callers take their Python paths (hashlib, `ed25519_ref`, numpy); signing
+has none and raises.
 
 The packer's worker threads start with the library's first RLC call and
 live as long as the process: do not fork after that.
@@ -52,6 +53,9 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "ed25519_engine": (ctypes.c_int, []),
     "ed25519_verify": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_char_p, _U64, ctypes.c_char_p]),
+    "ed25519_sign": (None, [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, _U64,
+                            ctypes.c_char_p]),
+    "ed25519_pubkey": (None, [ctypes.c_char_p, ctypes.c_char_p]),
     "ed25519_batch_verify": (ctypes.c_int, [_U64, ctypes.c_char_p, ctypes.c_char_p,
                                             ctypes.POINTER(_U64), ctypes.c_char_p]),
     "ed25519_pack_rsk": (None, [_U64, _P, _P, _P, ctypes.POINTER(_U64), _P]),
@@ -179,6 +183,22 @@ def verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
     """ZIP-215 verify of one signature; raises RuntimeError if the library
     is absent."""
     return bool(_required().ed25519_verify(pub, msg, len(msg), sig))
+
+
+def sign(seed: bytes, pub: bytes, msg: bytes) -> bytes:
+    """RFC 8032 signature R||S of `msg` under the 32-byte seed whose public
+    key is `pub`; raises RuntimeError if the library is absent."""
+    out = ctypes.create_string_buffer(64)
+    _required().ed25519_sign(seed, pub, msg, len(msg), out)
+    return out.raw
+
+
+def pubkey(seed: bytes) -> bytes:
+    """The 32-byte public key of a 32-byte seed; raises RuntimeError if
+    the library is absent."""
+    out = ctypes.create_string_buffer(32)
+    _required().ed25519_pubkey(seed, out)
+    return out.raw
 
 
 def batch_verify(items) -> bool:

@@ -17,7 +17,10 @@ Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, launches on `torch.cuda.current_stream()`,
 raises if the C function returns a non-zero `cudaGetLastError()`, and
 adds one to its entry in `launches`. A missing `nvcc` or a failed build
-raises; nothing falls back to the plain versions.
+raises; nothing falls back to the plain versions. Those errors are
+`KernelError`s; `is_device_error` tells them, and torch's CUDA errors,
+from an error of the data (the consensus state machine drops a peer's
+bad message but halts on a device error).
 """
 
 from __future__ import annotations
@@ -79,6 +82,28 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel library that could not be built or loaded, or a launch that
+    failed."""
+
+
+def is_device_error(e: BaseException) -> bool:
+    """Whether `e`, or an error it was raised from, is a fault of the device
+    layer: a KernelError, torch's CUDA errors (out of memory, an
+    accelerator error, a RuntimeError naming CUDA), or a "cuda" device
+    requested on a host without one."""
+    accel = getattr(torch, "AcceleratorError", None)
+    while e is not None:
+        if isinstance(e, (KernelError, torch.cuda.OutOfMemoryError)):
+            return True
+        if accel is not None and isinstance(e, accel):
+            return True
+        if isinstance(e, RuntimeError) and "cuda" in str(e).lower():
+            return True
+        e = e.__cause__
+    return False
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
@@ -100,7 +125,7 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
     if not Path(found).is_file():
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels cannot be built"
         )
     return found
@@ -128,7 +153,7 @@ def compile_sources(sources: dict[str, Path], out_dir: Path) -> None:
         else:
             os.replace(tmp, out_dir / f"{name}.so")
     if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(errors))
 
 
 def _compile_all(out_dir: Path) -> None:
@@ -146,7 +171,10 @@ def build() -> dict[str, ctypes.CDLL]:
         out_dir = build_dir()
         _compile_all(out_dir)
         for name in LIBRARIES:
-            lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+            try:
+                lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+            except OSError as e:
+                raise KernelError(f"cannot load {name}.so: {e}") from e
             for fn, argtypes in _SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
@@ -207,7 +235,7 @@ def _launch(f, kernel: str, device, batch: int, *ptrs) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = f(*ptrs, batch, stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
+        raise KernelError(f"{kernel} launch failed: cudaError {rc}")
     launches[kernel] += 1
 
 

@@ -16,9 +16,10 @@ backends' metrics line up:
 - of `LightClientMetrics`, the two counters `light/client.py` feeds
   (`headers_verified_total`, `bisections_total`); the serving surface's
   metrics come with `light/serve.py`;
-- of `ConsensusMetrics`, the tx-lifecycle stage histogram and the
-  arrival->commit histogram that `utils/txlife.py` feeds. The block-sync
-  bundle comes with the reactor that records it.
+- `ConsensusMetrics`, fed by `consensus/state.py` and `utils/txlife.py`
+  (all but the reference's `cert_gossip_total`, which only the
+  certificate path feeds). The block-sync bundle comes with the reactor
+  that records it.
 
 `crypto_metrics()`, `state_metrics()`, ... hand out the process's bundle
 against `DEFAULT_REGISTRY`; `reset_bundles()` clears them all (tests).
@@ -145,11 +146,30 @@ TX_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
 
 
 class ConsensusMetrics:
-    """The tx-lifecycle histograms of the reference's bundle (the rest
-    waits for the consensus slice)."""
+    """The reference's bundle as `consensus/state.py` and `utils/txlife.py`
+    feed it, without `cert_gossip_total` (only the certificate path, which
+    the port does not have, feeds it)."""
 
     def __init__(self, reg: Registry | None = None):
         reg = reg or DEFAULT_REGISTRY
+        self.height = reg.gauge("consensus", "height", "Current height")
+        self.rounds = reg.gauge("consensus", "rounds", "Round of the height")
+        self.validators = reg.gauge("consensus", "validators",
+                                    "Validator count")
+        self.missing_validators = reg.gauge(
+            "consensus", "missing_validators",
+            "Validators absent from the last commit")
+        self.block_interval_seconds = reg.histogram(
+            "consensus", "block_interval_seconds",
+            "Time between consecutive blocks")
+        self.num_txs = reg.gauge("consensus", "num_txs", "Txs in last block")
+        self.block_size_bytes = reg.gauge("consensus", "block_size_bytes",
+                                          "Last block size")
+        self.total_txs = reg.counter("consensus", "total_txs",
+                                     "Total committed txs")
+        self.step_duration_seconds = reg.histogram(
+            "consensus", "step_duration_seconds",
+            "Time spent in each consensus step", labels=("step",))
         # tx lifecycle observatory (utils/txlife.py): consensus-side
         # waterfall stages, bucket exemplars carrying sampled tx hashes
         self.tx_stage_seconds = reg.histogram(
@@ -161,6 +181,14 @@ class ConsensusMetrics:
             "consensus", "tx_commit_seconds",
             "Per-tx end-to-end arrival->commit latency; sampled txs only",
             buckets=TX_STAGE_BUCKETS)
+        # speculative proposal assembly: hit = the block built during the
+        # previous height's commit gap was consumed bit-exact by
+        # enter_propose; discard = a round bump, valid_block lock, late
+        # precommit, or mempool update invalidated it
+        self.speculation_total = reg.counter(
+            "consensus", "speculation_total",
+            "Speculative proposal assemblies by outcome",
+            labels=("outcome",))
 
 
 class MempoolMetrics:

@@ -68,5 +68,9 @@ SPAN_REGISTRY = {
     "crypto.batch_verify": "one batch-verify dispatch: path, n, modeled host/wire/device terms",
     "crypto.commit_partition": "per-curve share of one commit verification",
     "crypto.sched_coalesce": "one shared-scheduler dispatch: n_requests/sigs/tenants/sources/per_tenant_sigs (crypto/sched.py)",
+    "consensus.step": "span closing the consensus step being left (height/round/dur_ms/next)",
+    "consensus.finalize_commit": "block decided at height/round, with tx count",
+    "consensus.propose_speculative": "one speculative proposal assembly overlapping the previous height's commit gap (height/txs/bytes)",
+    "consensus.conflicting_vote": "conflicting signed votes from one validator at one HRS (height/round/type/vote_a/vote_b hex) — the watchtower's equivocation feed",
     "tx.lifecycle": "one stage crossing of a sampled tx (tx/stage/mono; utils/txlife.py — hash-prefix sampled, correlated across nodes by tx)",
 }

@@ -445,3 +445,57 @@ def test_dispatch_log_reads_each_scheduler_dispatch_from_the_trace(ingest_world,
         trace.disable()
     assert [d[:3] for d in log] == [(2, 12, "native"), (1, 3, "native")]
     assert all(isinstance(d[3], float) and d[3] >= 0 for d in log)
+
+
+# ---- phase 9's helpers (in-process consensus)
+
+@pytest.mark.parametrize("seed,bad,n_txs", [(5, (3, 2), 24), (3, (3, 1), 32)])
+def test_expected_consensus_outcome_matches_the_reference(tmp_path, seed, bad, n_txs):
+    """Phase 9 (b)'s lockstep function at 4 validators and 4 heights, the
+    round-0 proposal of height 3 carrying a last commit with one signature
+    flipped: the port at device "cpu" (`expected_consensus_outcome`) and
+    the reference's modules (backend "cpu") give the same outcome: block
+    hashes, seen commits of every node, app hashes, state bytes, WAL
+    records without their times, decided rounds (height 3 at round 1), the
+    nil prevotes at (3, 0) and the direct check of the tampered block."""
+    want = chip_smoke.expected_consensus_outcome(4, 4, tmp_path / "port", bad=bad, seed=seed,
+                                                 n_txs=n_txs)
+    ref = chip_smoke.lockstep_consensus(chip_smoke.consensus_modules("cometbft_tpu"), 4, 4,
+                                        tmp_path / "ref", {"backend": "cpu"}, bad=bad,
+                                        seed=seed, n_txs=n_txs)
+    assert {k: ref[k] for k in chip_smoke.LOCKSTEP_OUTCOME_KEYS} == want
+    assert want["rounds"] == [0, 0, 1, 0]
+    proposer = want["proposers"]["3/0"]
+    assert want["nil_prevotes"] == [i for i in range(4) if i != proposer]
+    assert ref["proposers"]["3/1"] != proposer
+    assert want["tamper_check"] == ("BlockValidationError",
+                                    f"invalid last commit: invalid signature at index {bad[1]}")
+    assert len(chip_smoke.lockstep_txs(2)) == chip_smoke.LOCKSTEP_TXS
+    assert {len(tx) for tx in chip_smoke.lockstep_txs(2)} == {chip_smoke.LOCKSTEP_TX_BYTES}
+
+
+def test_split_timer_takes_nested_calls_out_of_their_callers():
+    """`SplitTimer` books a wrapped call's wall time to its name less the
+    time of wrapped calls inside it, counts the calls, and restores the
+    originals."""
+    import time
+    import types
+
+    ns = types.SimpleNamespace()
+    ns.inner = lambda: time.sleep(0.05)
+    ns.outer = lambda: (time.sleep(0.005), ns.inner())
+    timer = chip_smoke.SplitTimer()
+    orig = ns.inner
+    timer.wrap(ns, "inner", "inner")
+    timer.wrap(ns, "outer", "outer")
+    ns.outer()
+    ns.inner()
+    timer.restore()
+    assert ns.inner is orig
+    assert timer.calls == {"inner": 2, "outer": 1}
+    # booked whole, outer would hold at least 55 ms
+    assert timer.ms["inner"] >= 100 and 5 <= timer.ms["outer"] < 50
+    assert chip_smoke.histogram_delta({(): {"count": 1, "sum": 2.0}},
+                                      {(): {"count": 3, "sum": 5.0},
+                                       ("x",): {"count": 1, "sum": 1.0}}) == {
+        (): (2, 3.0), ("x",): (1, 1.0)}

@@ -60,7 +60,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                        "cometbft_tpu_torch.mempool.admission",
                        "cometbft_tpu_torch.evidence.pool", "cometbft_tpu_torch.light.mmr",
                        "cometbft_tpu_torch.light.store",
-                       "cometbft_tpu_torch.light.client"]) - set(names)
+                       "cometbft_tpu_torch.light.client", "cometbft_tpu_torch.utils.bits",
+                       "cometbft_tpu_torch.utils.log", "cometbft_tpu_torch.types.proposal",
+                       "cometbft_tpu_torch.types.vote_set", "cometbft_tpu_torch.privval",
+                       "cometbft_tpu_torch.privval.file_pv", "cometbft_tpu_torch.consensus",
+                       "cometbft_tpu_torch.consensus.ticker", "cometbft_tpu_torch.consensus.wal",
+                       "cometbft_tpu_torch.consensus.height_vote_set",
+                       "cometbft_tpu_torch.consensus.state",
+                       "cometbft_tpu_torch.consensus.net"]) - set(names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 50 else 0)
     """)
