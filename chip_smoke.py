@@ -259,13 +259,54 @@ and never prints its last line):
      lane 77 broken and named alone; logged: blocks/s, the ms a height split into vote handling,
      proposals, checks, apply, signing, WAL and the rest, and the routes;
    `results.json` key `consensus`;
-10. one JSON line `{"kernels": [...]}` with each kernel's launches,
+10. the verify mesh and block sync over p2p (`parallel/mesh.py`,
+   `p2p/`, `blocksync/{pool,reactor}.py`), each leg with the launch counts
+   set to 0 just before it and read right after:
+   - (a) the mesh over every visible GPU when there are several, else over
+     2 and over 4 logical shards of the one card (which run one after
+     another on its stream: their times say nothing of scaling). All-ok
+     and bitmap bit for bit the single device's prehashed ladder on the
+     same padded arrays: a 10,000-signature commit at
+     `pad_to_shards(10_000, d, 10_240)`, valid and with lanes MESH_BAD
+     broken (three shards, the last live lane among them); 13 lanes over 8
+     shards, 97 lanes, d - 1 lanes (an all-dead shard) and none, each with
+     its last lane broken; the device-SHA form against `verify_batch`; the
+     2 x 2 (host, sig) grid against the 1-D mesh. Then the engine
+     installed (`parallel.mesh.set_engine`) and the pick forced: `submit()`
+     of the broken commit takes path "mesh" with exactly d `decompress`
+     and d `ladder_sub_mul8` launches and names the broken lanes; 16
+     streamed commits on the ladder go round robin (`mesh_batches_total`
+     by device), each all true; replay of phase 7's chain at depth 1 + d
+     through the mesh reaches phase 7's final state bytes;
+     `dispatch_terms()` calibrated; logged: the terms and a sharded
+     10,000-signature verify's ms beside one device's; and
+     `graft_entry.dryrun_multichip(d)`;
+   - (b) block sync over TCP on 127.0.0.1 between `Switch`es (each with
+     its `Transport` and a `SecretConnection` a peer), the syncing
+     `BlockSyncReactor` on the card: (b1) phase 7's chain seen up to
+     height 65, at the reference's 512,000 B/s each way: the node syncs to
+     64, its state bytes equal a host run over the same blocks (native
+     checks) and its last app hash block 65's header's; (b2)
+     `make_chain(9, n_validators=10_000)` with the rate limits off: 8
+     blocks synced, every light check on the card (ladder or RLC, as the
+     calibrated dispatch picks), the state bytes the host's, then the same
+     checks and applies with no wire beside them (timed, the same state);
+     (b3) a liar
+     serving (b2)'s chain with signature 4,321 of block 6's last commit
+     flipped: synced from it alone the node stops at height 4, counts a
+     bad block, bans and disconnects the liar, and its refusal is the
+     host's CommitError (class and message); once an honest peer joins, the sync ends at (b2)'s state
+     with every stored block the honest one. Logged per leg: blocks/s,
+     the median `verify_ms` and `apply_ms` of the `blocksync.block`
+     spans, bytes sealed and the sealing and opening ms, routes and
+     launches; `results.json` keys `mesh` and `blocksync`;
+11. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-11. the card's name and power limit, then the last line
+12. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -2057,7 +2098,7 @@ def replay_phase(dev, card, seed: int, kern: dict, mul_rate: float) -> dict:
         f" no block applied; full -> {got} after {applied} blocks [{card}]")
 
     out["counts"] = counts
-    out["chain"] = (store, final)  # phase 8's light client reads it; not written out
+    out["chain"] = (store, final, genesis)  # phases 8 and 10 read it; not written out
     for name in SOURCES:
         kern[name]["launches_by_route"]["replay"] = sum(c[name] for c in counts.values())
         kern[name]["launches"] += kern[name]["launches_by_route"]["replay"]
@@ -2753,7 +2794,7 @@ def light_phase(dev, seed: int, counts, card, chain) -> dict:
     from cometbft_tpu_torch.types.evidence import decode_evidence
     from cometbft_tpu_torch.utils import factories as fx
 
-    store, final = chain
+    store, final = chain[:2]
     now = Timestamp.from_unix_ns(LIGHT_NOW_S * 10**9)
     tip = store.height()
 
@@ -3348,6 +3389,636 @@ def consensus_phase(dev, card, seed: int, kern: dict, mul_rate: float) -> dict:
     for name in SOURCES:
         kern[name]["launches_by_route"]["consensus"] = sum(c[name] for c in counts.values())
         kern[name]["launches"] += kern[name]["launches_by_route"]["consensus"]
+    return out
+
+
+# ---- phase 10: the verify mesh and block sync over p2p
+
+MESH_SHARDS = (2, 4)  # logical shards of the one card when a single GPU is visible
+MESH_BAD = (77, 5_003, 9_999)  # broken lanes of the 10,000-signature commit (the last among them)
+# (lanes, shards) of the small layouts; shards 0: the engine's own; lanes
+# None: one fewer than its shards (an all-dead shard)
+MESH_SMALL = ((13, 8), (97, 0), (None, 0), (0, 0))
+MESH_STREAM = 16  # streamed commits, placed round robin
+MESH_REPS = 3
+SYNC_TOP = 65  # (b1): phase 7's chain seen up to height 65; the node syncs to 64
+SYNC_CHAIN = "sync-chain"
+SYNC_VALIDATORS = 10_000  # (b2), (b3): the north star's scale
+SYNC_BLOCKS = 9  # 8 of them synced: the tip waits for its successor's commit
+SYNC_FORGED = (6, 4_321)  # (b3): the liar's block 6 has last-commit signature 4,321 flipped
+SYNC_TIMEOUT_S = 600.0
+
+
+def mesh_layouts(dev) -> list:
+    """The device lists the mesh leg runs over: every visible GPU when there
+    are several, else MESH_SHARDS logical shards of `dev`."""
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n > 1:
+        return [[torch.device("cuda", i) for i in range(n)]]
+    return [[dev] * d for d in MESH_SHARDS]
+
+
+def broken_lanes(items, lanes) -> list:
+    """A copy of the (pub, msg, sig) items with each lane's R broken."""
+    out = list(items)
+    for i in lanes:
+        pub, msg, sig = out[i]
+        out[i] = (pub, msg, bytes([sig[0] ^ 1]) + sig[1:])
+    return out
+
+
+def mesh_arrays(items, b: int):
+    """The ladder route's pinned host arrays of `items` padded to b lanes:
+    (pubkey column, R||S||k rows, live mask), packed by the verifier."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+
+    bv = E.Ed25519BatchVerifier(torch.device("cpu"))
+    n = len(items)
+    if n:
+        bv.add_batch(*to_columns(items))
+    a = torch.zeros((b, 32), dtype=torch.uint8)
+    if n:
+        a[:n] = torch.from_numpy(np.frombuffer(bytes(bv._pub_buf), np.uint8).reshape(n, 32).copy())
+    pin = torch.cuda.is_available()
+    rsk = bv._pack_rsk(n, b)
+    live = torch.arange(b) < n
+    return (a.pin_memory(), rsk.pin_memory(), live.pin_memory()) if pin else (a, rsk, live)
+
+
+def single_device_verdict(dev, a, rsk, live):
+    """(all-ok, bits on the host) of the prehashed ladder on one device over
+    the whole batch: what each mesh shard computes, unsharded."""
+    from cometbft_tpu_torch.ops import ed25519_verify as V
+
+    a, rsk, live = (t.to(dev) for t in (a, rsk, live))
+    bits, ok = V.verify_batch_prehashed(a, rsk[:, :32], rsk[:, 32:64], rsk[:, 64:], live)
+    return bool(ok.item()), bits.cpu()
+
+
+def check_sharded(what: str, eng_or_fn, dev, a, rsk, live) -> bool:
+    """A sharded verify against the single device's, bit for bit; returns
+    its all-ok."""
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    if callable(eng_or_fn):
+        ok, bits = eng_or_fn(a, rsk, live)
+    else:
+        ok, bits = eng_or_fn.submit(a, rsk, live)
+    got = (bool(ok.item()), M.gather_bits(bits))
+    want = single_device_verdict(dev, a, rsk, live)
+    if got[0] != want[0] or not torch.equal(got[1], want[1]):
+        bad = (~got[1]).nonzero().flatten()[:8].tolist()
+        raise AssertionError(f"mesh, {what}: sharded all-ok {got[0]}, bad lanes {bad}; the single "
+                             f"device says {want[0]}, {(~want[1]).nonzero().flatten()[:8].tolist()}")
+    return got[0]
+
+
+def mesh_shard_check(eng, a, rsk, live) -> dict:
+    """The kernels at a mesh shard's own shapes: one `eng.submit` of the
+    arrays, the last shard's inputs kept as the sharded verifier hands them
+    to `verify_batch_prehashed`; on them `decompress` over the shard's A
+    and R together (2 x shard lanes, as the shard launches it) and
+    `ladder_sub_mul8` over the shard's lanes, each through its wrapper
+    against its plain version on every lane, bit for bit after freeze."""
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import ed25519_verify as V
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    kept, real = [], V.verify_batch_prehashed
+
+    def keep(*args):
+        kept.append(tuple(x.clone() for x in args))
+        return real(*args)
+
+    V.verify_batch_prehashed = keep
+    try:
+        ok, _ = eng.submit(a, rsk, live)
+        bool(ok.item())
+    finally:
+        V.verify_batch_prehashed = real
+    if len(kept) != eng.n_devices:
+        raise AssertionError(f"mesh shard check: {len(kept)} shards verified, want {eng.n_devices}")
+    a_b, r_b, s_b, k_b, _ = kept[-1]
+    k = a_b.shape[0]
+    enc = torch.cat([a_b, r_b])
+    valid, pt = C.decompress(enc)
+    sign, y = C._split_encoding(enc)
+    p_valid, p_x, p_t = C.decompress_plain(y, sign)
+    mx, ex = frozen_diff(F, pt[0], p_x)
+    mt, et = frozen_diff(F, pt[3], p_t)
+    d_mism = int((valid != p_valid).sum()) + mx + mt
+    s_dig, k_dig = SC.digits_from_bytes(s_b), SC.digits_from_bytes(k_b)
+    neg_a, r_pt = C.neg(tuple(c[:, :k] for c in pt)), tuple(c[:, k:] for c in pt)
+    got = torch.stack(C.ladder_sub_mul8(s_dig, k_dig, neg_a, r_pt))
+    want = torch.stack(C.ladder_sub_mul8_plain(s_dig, k_dig, neg_a, r_pt))
+    l_mism, el = frozen_diff(F, got, want)
+    if d_mism or l_mism:
+        raise AssertionError(f"mesh shard check over {eng.n_devices} shards: decompress at "
+                             f"B={2 * k} {d_mism} lanes, ladder_sub_mul8 at B={k} {l_mism} lanes "
+                             "differ from the plain versions")
+    return {"shard_lanes": k, "decompress_lanes": 2 * k, "decompress_mismatches": d_mism,
+            "decompress_max_abs_err": max(ex, et), "ladder_mismatches": l_mism,
+            "ladder_max_abs_err": el}
+
+
+def mesh_phase(dev, card, kern: dict, commits, chain) -> dict:
+    """Phase 10 (a): the verify mesh over each layout of `mesh_layouts`, held
+    bit for bit against the single device's ladder, and a shard's own
+    kernel launches against their plain versions (`mesh_shard_check`);
+    the model's mesh term and pick at the commit's bucket; then, with the engine
+    installed and the pick forced, `submit()` through the mesh, streamed
+    commits round robin and replay of phase 7's chain at depth 1 + d; each
+    leg with the launch counts set to 0 just before it and read right
+    after."""
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync import ReplayEngine
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.crypto.ed25519 import collect_pending
+    from cometbft_tpu_torch.graft_entry import dryrun_multichip
+    from cometbft_tpu_torch.ops import ed25519_verify as V
+    from cometbft_tpu_torch.parallel import mesh as M
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.utils.metrics import crypto_metrics
+
+    store, final, genesis = chain
+    valid = list(commits[0])
+    bad = broken_lanes(valid, MESH_BAD)
+    gpus = torch.cuda.device_count() if dev.type == "cuda" else 0
+    what_shards = "GPUs" if gpus > 1 else f"logical shards of {dev} (one after another on its stream)"
+    out, counts = {"layouts": {}, "shards_are": what_shards}, {}
+    t_phase = time.perf_counter()
+    seams = (E._mesh_beats_single, E._rlc_beats_ladder, E._delta_beats_prehashed)
+    try:
+        for devs in mesh_layouts(dev):
+            d = len(devs)
+            res = {}
+            eng = M.MeshVerifyEngine(devs)
+            b = M.pad_to_shards(len(valid), d, E._bucket(len(valid)))
+            arrays = {"valid": mesh_arrays(valid, b), "bad": mesh_arrays(bad, b)}
+            if not check_sharded(f"{d} shards, 10,000 valid", eng, dev, *arrays["valid"]):
+                raise AssertionError("mesh: the valid 10,000-signature commit did not verify")
+            if check_sharded(f"{d} shards, 10,000 with lanes {MESH_BAD} broken", eng, dev,
+                             *arrays["bad"]):
+                raise AssertionError("mesh: the broken commit verified")
+            res["shard_check"] = mesh_shard_check(eng, *arrays["bad"])
+            for n, shards in MESH_SMALL:
+                e = eng if not shards else M.MeshVerifyEngine([devs[0]] * shards)
+                n = e.n_devices - 1 if n is None else n
+                check_sharded(f"{n} lanes over {e.n_devices} shards", e, dev,
+                              *mesh_arrays(broken_lanes(valid[:n], [n - 1] if n > 1 else []),
+                                           M.pad_to_shards(n, e.n_devices)))
+            # the device-SHA form against verify_batch on the same padded items
+            bv = E.Ed25519BatchVerifier(dev, device_sha=True)
+            bv.add_batch(*to_columns(bad))
+            buf, fields, _ = bv._pack_device_sha(len(bad), b)
+            t = E.unpack_fields(buf, fields)
+            args = [t[k] for k in ("a", "r", "s", "words", "two", "live")]
+            ok, bits = M.sharded_verify_fn(eng.mesh)(*args)
+            wbits, wok = V.verify_batch(*(x.to(dev) for x in args))
+            if bool(ok.item()) != bool(wok.item()) or not torch.equal(M.gather_bits(bits),
+                                                                      wbits.cpu()):
+                raise AssertionError(f"mesh, {d} shards: the device-SHA form differs from "
+                                     "verify_batch")
+            if d == 4:
+                grid = M.MeshVerifyEngine(devs, hosts=2)
+                g_ok, g_bits = grid.submit(*arrays["bad"])
+                o_ok, o_bits = eng.submit(*arrays["bad"])
+                if bool(g_ok.item()) != bool(o_ok.item()) or not torch.equal(
+                        M.gather_bits(g_bits), M.gather_bits(o_bits)):
+                    raise AssertionError("mesh: the 2 x 2 (host, sig) grid differs from 1-D")
+                res["grid_2x2"] = "equal to 1-D"
+
+            # the engine installed, the pick forced: submit() through the mesh
+            M.set_engine(eng)
+            E._mesh_beats_single = lambda n_, b_, device: True
+            E._rlc_beats_ladder = lambda n_, b_, device: False
+            E._delta_beats_prehashed = lambda n_, b_, device: False
+
+            def submit_bad():
+                bv = E.Ed25519BatchVerifier(dev)
+                bv.add_batch(*to_columns(bad))
+                p = bv.submit()
+                return p._path, p.result()
+
+            (path, (ok, bits)), routes = counted_leg(counts, "mesh", f"submit_{d}", submit_bad,
+                                                     need=("decompress", "ladder_sub_mul8"))
+            c = counts[f"submit_{d}"]
+            if path != "mesh" or ok or [i for i, x in enumerate(bits) if not x] != list(MESH_BAD):
+                raise AssertionError(f"mesh, submit(): path {path}, bad lanes "
+                                     f"{[i for i, x in enumerate(bits) if not x][:8]}")
+            if c["decompress"] != d or c["ladder_sub_mul8"] != d:
+                raise AssertionError(f"mesh, submit() over {d} shards launched {c}")
+
+            # streamed commits: the ladder route, each whole commit on the next device
+            E._mesh_beats_single = lambda n_, b_, device: False
+            before = crypto_metrics().mesh_batches_total.values()
+
+            def streamed():
+                return collect_pending([submit_commit(to_columns(commits[i % 2]), dev)
+                                        for i in range(MESH_STREAM)])
+
+            results, _ = counted_leg(counts, "mesh", f"stream_{d}", streamed,
+                                     need=("ladder_sub_mul8",))
+            after = crypto_metrics().mesh_batches_total.values()
+            placed = {k[0]: v - before.get(k, 0.0) for k, v in after.items()
+                      if k[1] == "stream" and v != before.get(k, 0.0)}
+            if placed != {str(i): MESH_STREAM / d for i in range(d)} or \
+                    not all(ok and all(bits) for ok, bits in results):
+                raise AssertionError(f"mesh, streamed: placements {placed}")
+
+            # replay of phase 7's chain at depth 1 + d, every window through the mesh
+            E._mesh_beats_single = lambda n_, b_, device: True
+            rep = ReplayEngine(store, BlockExecutor(AppConns(KVStoreApp()), device=dev),
+                               window=REPLAY_WINDOW, device=dev)
+            t0 = time.perf_counter()
+            (state, stats), routes_r = counted_leg(counts, "mesh", f"replay_{d}",
+                                                   lambda: rep.run(genesis.copy()),
+                                                   need=("decompress", "ladder_sub_mul8"))
+            replay_s = time.perf_counter() - t0
+            if rep._pipeline_depth() != 1 + d or state.encode() != final.encode() or \
+                    stats.blocks != REPLAY_BLOCKS or set(routes_r) != {"mesh"}:
+                raise AssertionError(f"mesh, replay at depth {rep._pipeline_depth()}: routes "
+                                     f"{routes_r}, {stats.blocks} blocks, state equal "
+                                     f"{state.encode() == final.encode()}")
+            M.set_engine(None)
+
+            # the calibrated terms, and a sharded submit's time beside one device's
+            terms = eng.dispatch_terms()
+            if not terms["calibrated"]:
+                raise AssertionError("mesh: dispatch_terms() did not calibrate")
+            # the model's mesh term at the commit's bucket and the pick it makes
+            M.set_engine(eng)
+            n_c, b_c = len(valid), E._bucket(len(valid))
+            model = E.dispatch_model(n_c, b_c, dev)
+            res["model"] = {"bucket": b_c, "picked": seams[0](n_c, b_c, dev),
+                            **{f"{r}_ms": {k: v * 1e3 for k, v in model[r].items()}
+                               for r in ("mesh", "ladder", "rlc")},
+                            **{f"t_{r}_ms": model[f"t_{r}"] * 1e3 for r in ("mesh", "ladder", "rlc")}}
+            M.set_engine(None)
+
+            def sharded():
+                ok, _ = eng.submit(*arrays["valid"])
+                ok.item()
+
+            def single():
+                single_device_verdict(dev, *arrays["valid"])
+
+            res.update(shards=d, devices=[str(x) for x in devs], terms=terms,
+                       submit_ms=median_ms(sharded, MESH_REPS),
+                       single_ms=median_ms(single, MESH_REPS), submit_routes=routes,
+                       placed=placed, replay_s=replay_s,
+                       replay_blocks_per_s=REPLAY_BLOCKS / replay_s, replay_routes=routes_r)
+            dryrun_multichip(d, str(dev))
+            small = ", ".join(f"{'d - 1' if n is None else n} over {k or d}" for n, k in MESH_SMALL)
+            sc, mo = res["shard_check"], res["model"]
+            log(f"mesh, {d} {what_shards}: the model at {n_c:,} lanes (bucket {b_c:,}) ms: mesh "
+                + ", ".join(f"{k} {v:.3f}" for k, v in mo["mesh_ms"].items())
+                + f" -> {mo['t_mesh_ms']:.3f}; ladder {mo['t_ladder_ms']:.3f}, rlc "
+                f"{mo['t_rlc_ms']:.3f}; the mesh picked: {mo['picked']} [{card}]")
+            log(f"mesh, {d} {what_shards}: the last shard of the broken commit, decompress at "
+                f"B={sc['decompress_lanes']} and ladder_sub_mul8 at B={sc['shard_lanes']} exact "
+                f"on every lane against the plain versions [{card}]")
+            log(f"mesh, {d} {what_shards}: {len(valid):,} lanes valid and broken, lanes over "
+                f"shards {small}, the device-SHA form{', the 2 x 2 grid' if d == 4 else ''}: all "
+                f"bit for bit the single device's; submit() took the mesh ({d} decompress, {d} ladder "
+                f"launches); {MESH_STREAM} streamed commits placed {placed}; replay of "
+                f"{REPLAY_BLOCKS} blocks at depth {1 + d} through the mesh in {replay_s:.2f} s to "
+                f"phase 7's state; terms put_fixed {terms['put_fixed_s'] * 1e6:.1f} us, "
+                f"collective {terms['collective_s'] * 1e6:.1f} us; a sharded 10,000-signature "
+                f"verify {res['submit_ms']:.3f} ms against one device's {res['single_ms']:.3f} ms "
+                f"[{card}]")
+            out["layouts"][d] = res
+    finally:
+        M.set_engine(None)
+        M.reset_engine()
+        E._mesh_beats_single, E._rlc_beats_ladder, E._delta_beats_prehashed = seams
+    out["seconds"] = time.perf_counter() - t_phase
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["mesh"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["mesh"]
+    return out
+
+
+class StoreView:
+    """A block store served up to height `top`; with `forge` = (height,
+    index), that block's last commit has signature `index` flipped (a lying
+    peer's store)."""
+
+    def __init__(self, inner, top: int, forge=None):
+        self.inner, self.top, self.forge = inner, top, forge
+
+    def height(self) -> int:
+        return min(self.inner.height(), self.top)
+
+    def base(self) -> int:
+        return self.inner.base()
+
+    def load_block(self, h: int):
+        if h > self.top:
+            return None
+        blk = self.inner.load_block(h)
+        if blk is not None and self.forge and h == self.forge[0]:
+            blk.last_commit = with_flipped_signature(blk.last_commit, self.forge[1])
+        return blk
+
+
+def host_state(store, genesis, top: int):
+    """The state that applying blocks 1..top of `store` gives on the host:
+    every last commit verified by the native engine (NATIVE_MAX raised over
+    every commit size), a fresh KVStoreApp."""
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.types.block import block_id_for
+
+    prev, E.NATIVE_MAX = E.NATIVE_MAX, 1 << 30
+    try:
+        ex = BlockExecutor(AppConns(KVStoreApp()), device="cpu")
+        state = genesis.copy()
+        for h in range(1, top + 1):
+            blk = store.load_block(h)
+            state = ex.apply_block(state, block_id_for(blk), blk)
+    finally:
+        E.NATIVE_MAX = prev
+    return state
+
+
+def host_refusal(store, state, height: int):
+    """The host's verdict on block `height` checked against block height+1's
+    last commit, the light check block sync runs (the native engine), as
+    `outcome_of` gives it."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.types.block import block_id_for
+    from cometbft_tpu_torch.types.validation import verify_commit_light
+
+    first, second = store.load_block(height), store.load_block(height + 1)
+    prev, E.NATIVE_MAX = E.NATIVE_MAX, 1 << 30
+    try:
+        return outcome_of(lambda: verify_commit_light(
+            state.chain_id, state.validators, block_id_for(first), height,
+            second.last_commit, device="cpu"))
+    finally:
+        E.NATIVE_MAX = prev
+
+
+class SyncNet:
+    """Block-sync nodes on 127.0.0.1: each a `Switch` with its `Transport`
+    (and a `SecretConnection` a peer) and a `BlockSyncReactor`."""
+
+    def __init__(self, chain_id: str, rate):
+        self.chain_id, self.rate, self.switches = chain_id, rate, []
+
+    def node(self, reactor, name: str):
+        from cometbft_tpu_torch.p2p import NodeInfo, NodeKey, Switch, Transport
+
+        nk = NodeKey.generate()
+        tr = Transport(nk, NodeInfo(node_id=nk.node_id(), network=self.chain_id, moniker=name))
+        sw = Switch(tr, send_rate=self.rate, recv_rate=self.rate)
+        sw.add_reactor(reactor)
+        tr.listen()
+        sw.start()
+        self.switches.append(sw)
+        return sw
+
+    @staticmethod
+    def connect(syncing_sw, syncing, serving_sw, timeout_s: float = 20.0):
+        """The syncing node dials the serving one and waits for the peer."""
+        host, port = serving_sw.transport.node_info.listen_addr.split(":")
+        peer = syncing_sw.dial_peer(host, int(port))
+        deadline = time.monotonic() + timeout_s
+        while peer.id not in syncing._peers and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return peer
+
+    def cipher(self) -> dict:
+        """Frames and milliseconds of every live connection's cipher, both
+        ends: bytes sealed and opened, and the time it took."""
+        from cometbft_tpu_torch.p2p.secret_connection import SEALED_FRAME_SIZE
+
+        out = {"sealed_frames": 0, "opened_frames": 0, "seal_ms": 0.0, "open_ms": 0.0}
+        for sw in self.switches:
+            for p in sw.peers():
+                sc = p.mconn._conn
+                out["sealed_frames"] += sc.sealed_frames
+                out["opened_frames"] += sc.opened_frames
+                out["seal_ms"] += sc.seal_s * 1e3
+                out["open_ms"] += sc.open_s * 1e3
+        out["bytes"] = out["sealed_frames"] * SEALED_FRAME_SIZE
+        return out
+
+    def stop(self) -> None:
+        for sw in self.switches:
+            sw.stop()
+
+
+def sync_split(tap) -> dict:
+    """The median per-block verify and apply milliseconds of the leg's
+    `blocksync.block` spans."""
+    spans = tap.spans("blocksync.block")
+    return {"blocks": len(spans),
+            "verify_ms": float(np.median([s["verify_ms"] for s in spans])) if spans else None,
+            "apply_ms": float(np.median([s["apply_ms"] for s in spans])) if spans else None}
+
+
+def quiet_split(store, genesis, top: int, dev) -> dict:
+    """The light checks and applies of a sync to `top`, run on `dev` with no
+    wire beside them: the median ms a block of each, and the state bytes
+    reached."""
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.types.block import block_id_for
+    from cometbft_tpu_torch.types.validation import verify_commit_light
+
+    ex, state = BlockExecutor(AppConns(KVStoreApp()), device=dev), genesis.copy()
+    verify, apply = [], []
+    for h in range(1, top + 1):
+        first, second = store.load_block(h), store.load_block(h + 1)
+        bid = block_id_for(first)
+        t0 = time.perf_counter()
+        verify_commit_light(state.chain_id, state.validators, bid, h, second.last_commit,
+                            device=dev)
+        t1 = time.perf_counter()
+        state = ex.apply_block(state, bid, first)
+        verify.append(t1 - t0)
+        apply.append(time.perf_counter() - t1)
+    return {"verify_ms": float(np.median(verify)) * 1e3, "apply_ms": float(np.median(apply)) * 1e3,
+            "state": state.encode()}
+
+
+def sync_leg(dev, card, counts, leg: str, net, serving, genesis, top: int, tap,
+             expect_state: bytes, need=()):
+    """One syncing node (fresh store, `dev`) against the serving reactors,
+    synced to `top`: its state bytes must be `expect_state`. Returns the
+    leg's numbers and the syncing reactor."""
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.storage import BlockStore, MemKV
+
+    store = BlockStore(MemKV())
+    syncing = BlockSyncReactor(store, executor=BlockExecutor(AppConns(KVStoreApp()), device=dev),
+                               state=genesis.copy(), device=dev)
+    sw = net.node(syncing, f"{leg}-syncer")
+    for s in serving:
+        net.connect(sw, syncing, s)
+    tap.mark()
+    t0 = time.perf_counter()
+    state, routes = counted_leg(counts, "blocksync", leg,
+                                lambda: syncing.sync(timeout_s=SYNC_TIMEOUT_S), need=need)
+    wall = time.perf_counter() - t0
+    if state.last_block_height != top or store.height() != top or state.encode() != expect_state:
+        raise AssertionError(f"blocksync, {leg}: height {state.last_block_height} (store "
+                             f"{store.height()}), want {top}; state equal to the host's "
+                             f"{state.encode() == expect_state}; refused {syncing.refused}")
+    res = {"blocks": top, "wall_s": wall, "blocks_per_s": top / wall, "routes": routes,
+           "launches": {k: v for k, v in counts[leg].items() if v}, **sync_split(tap),
+           **net.cipher(),
+           "synced_block_bytes": sum(len(store.load_block(h).encode()) for h in range(1, top + 1))}
+    return res, syncing, store
+
+
+def blocksync_phase(dev, card, seed: int, kern: dict, chain) -> dict:
+    """Phase 10 (b): block sync over TCP on 127.0.0.1 between two switches,
+    the syncing reactor on `dev`: (b1) phase 7's chain at the reference's
+    rates, (b2) a 10,000-validator chain with the rate limits off, (b3) a
+    lying peer, then an honest one."""
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.p2p.conn import DEFAULT_RECV_RATE, DEFAULT_SEND_RATE
+    from cometbft_tpu_torch.utils import factories as fx
+    from cometbft_tpu_torch.utils import trace
+    from cometbft_tpu_torch.utils.metrics import blocksync_metrics
+
+    out, counts = {"card": card}, {}
+    path = OUT_DIR / "trace_blocksync.jsonl"
+    trace.configure(str(path))
+    tap = TraceTap(path)
+    try:
+        # (b1) BASELINE.json's block-sync config: phase 7's chain up to 65
+        store7, _, genesis7 = chain
+        want = host_state(store7, genesis7, SYNC_TOP - 1)
+        if want.app_hash != store7.load_block(SYNC_TOP).header.app_hash:
+            raise AssertionError("blocksync, (b1): the host's state misses block 65's app hash")
+        net = SyncNet(REPLAY_CHAIN, DEFAULT_SEND_RATE)
+        try:
+            server = net.node(BlockSyncReactor(StoreView(store7, SYNC_TOP)), "b1-server")
+            out["b1"], _, _ = sync_leg(dev, card, counts, "b1", net, [server], genesis7,
+                                       SYNC_TOP - 1, tap, want.encode())
+        finally:
+            net.stop()
+        out["b1"]["rate_bytes_per_s"] = (DEFAULT_SEND_RATE, DEFAULT_RECV_RATE)
+
+        # (b2) the north star's scale, the rate limits off
+        t0 = time.perf_counter()
+        (store, _, genesis, _), _ = counted_leg(counts, "blocksync", "generate", lambda: fx.make_chain(
+            SYNC_BLOCKS, n_validators=SYNC_VALIDATORS, chain_id=SYNC_CHAIN, txs_per_block=1,
+            seed=seed, device=dev, r_pool=fx.RPool(SYNC_VALIDATORS, SYNC_BLOCKS, device=dev)))
+        out["generate_s"] = time.perf_counter() - t0
+        top = SYNC_BLOCKS - 1
+        want = host_state(store, genesis, top).encode()
+        net = SyncNet(SYNC_CHAIN, 0)
+        try:
+            server = net.node(BlockSyncReactor(StoreView(store, SYNC_BLOCKS)), "b2-server")
+            out["b2"], _, _ = sync_leg(dev, card, counts, "b2", net, [server], genesis, top, tap,
+                                       want)
+        finally:
+            net.stop()
+        if not set(out["b2"]["routes"]) & {"ladder", "rlc"} or \
+                not out["b2"]["launches"].get("ladder_sub_mul8"):
+            raise AssertionError(f"blocksync, (b2): the light checks took {out['b2']['routes']}, "
+                                 f"launches {out['b2']['launches']}")
+        # the same checks and applies with no wire beside them
+        quiet, _ = counted_leg(counts, "blocksync", "b2_quiet",
+                               lambda: quiet_split(store, genesis, top, dev))
+        if quiet.pop("state") != want:
+            raise AssertionError("blocksync, (b2) without the wire: not the host's state")
+        out["b2"]["quiet"] = quiet
+
+        # (b3) a lying peer alone, then an honest one too
+        from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+        from cometbft_tpu_torch.state.execution import BlockExecutor
+        from cometbft_tpu_torch.storage import BlockStore, MemKV
+
+        liar_view = StoreView(store, SYNC_BLOCKS, forge=SYNC_FORGED)
+        h_bad = SYNC_FORGED[0] - 1  # block 5 is checked against the liar's block 6
+        want_refusal = host_refusal(liar_view, host_state(store, genesis, h_bad - 1), h_bad)
+        if want_refusal is None:
+            raise AssertionError("blocksync, (b3): the host accepts the forged commit")
+        bad_before = blocksync_metrics().bad_blocks_total.values().get((), 0.0)
+        net = SyncNet(SYNC_CHAIN, 0)
+        try:
+            liar = net.node(BlockSyncReactor(liar_view), "b3-liar")
+            honest = net.node(BlockSyncReactor(StoreView(store, SYNC_BLOCKS)), "b3-honest")
+            fresh = BlockStore(MemKV())
+            syncing = BlockSyncReactor(fresh, executor=BlockExecutor(AppConns(KVStoreApp()),
+                                                                     device=dev),
+                                       state=genesis.copy(), device=dev)
+            sw = net.node(syncing, "b3-syncer")
+            liar_peer = net.connect(sw, syncing, liar)
+            tap.mark()
+            t0 = time.perf_counter()
+            state, routes1 = counted_leg(counts, "blocksync", "b3_liar",
+                                         lambda: syncing.sync(timeout_s=SYNC_TIMEOUT_S))
+            liar_s = time.perf_counter() - t0
+            got_refusal = [(h, p, (type(e).__name__, str(e))) for h, p, e in syncing.refused]
+            bad_blocks = blocksync_metrics().bad_blocks_total.values().get((), 0.0) - bad_before
+            if state.last_block_height != h_bad - 1 or bad_blocks < 1 or \
+                    got_refusal[:1] != [(h_bad, liar_peer.id, want_refusal)] or \
+                    liar_peer.id in {p.id for p in sw.peers()}:
+                raise AssertionError(f"blocksync, (b3) liar alone: height "
+                                     f"{state.last_block_height}, want {h_bad - 1}; bad blocks "
+                                     f"{bad_blocks}; refusals {got_refusal}; want {want_refusal}; "
+                                     f"peers after {[p.id for p in sw.peers()]}")
+            split1 = sync_split(tap)
+            net.connect(sw, syncing, honest)
+            tap.mark()
+            t0 = time.perf_counter()
+            state, routes2 = counted_leg(counts, "blocksync", "b3_honest",
+                                         lambda: syncing.sync(timeout_s=SYNC_TIMEOUT_S))
+            honest_s = time.perf_counter() - t0
+            if state.last_block_height != top or state.encode() != want:
+                raise AssertionError(f"blocksync, (b3) with the honest peer: height "
+                                     f"{state.last_block_height}, state equal to (b2)'s "
+                                     f"{state.encode() == want}")
+            for h in range(1, top + 1):
+                if fresh.load_block(h).encode() != store.load_block(h).encode():
+                    raise AssertionError(f"blocksync, (b3): stored block {h} is not the honest one")
+            out["b3"] = {"refusal": got_refusal, "bad_blocks": bad_blocks,
+                         "liar": {"wall_s": liar_s, "height": h_bad - 1, "routes": routes1,
+                                  **split1},
+                         "honest": {"wall_s": honest_s, "blocks": top - h_bad + 1,
+                                    "blocks_per_s": (top - h_bad + 1) / honest_s,
+                                    "routes": routes2, **sync_split(tap)},
+                         "banned": sorted(syncing.banned), **net.cipher()}
+        finally:
+            net.stop()
+    finally:
+        trace.disable()
+    log(f"blocksync, (b2) the same {top} light checks and applies with no wire beside them: "
+        f"median verify {out['b2']['quiet']['verify_ms']:.3f} ms, apply "
+        f"{out['b2']['quiet']['apply_ms']:.3f} ms a block [{card}]")
+    for leg in ("b1", "b2"):
+        r = out[leg]
+        log(f"blocksync, ({leg}) {r['blocks']} blocks synced over TCP in {r['wall_s']:.2f} s -> "
+            f"{r['blocks_per_s']:.2f} blocks/s; median a block verify {r['verify_ms']} ms, apply "
+            f"{r['apply_ms']} ms; wire {r['bytes']} B sealed for {r['synced_block_bytes']} B of "
+            f"blocks synced, seal {r['seal_ms']:.0f} ms, open {r['open_ms']:.0f} ms; routes "
+            f"{r['routes']}, launches {r['launches']} [{card}]")
+    r = out["b3"]
+    h = r["honest"]
+    log(f"blocksync, (b3) the liar alone: stopped at height {r['liar']['height']} in "
+        f"{r['liar']['wall_s']:.2f} s (median a block verify {r['liar']['verify_ms']} ms, apply "
+        f"{r['liar']['apply_ms']} ms), refusal {r['refusal'][0]}, bad blocks "
+        f"{r['bad_blocks']:.0f}, the liar banned and disconnected; with the honest peer: "
+        f"{h['blocks']} more blocks in {h['wall_s']:.2f} s ({h['blocks_per_s']:.2f} blocks/s, "
+        f"median verify {h['verify_ms']} ms, apply {h['apply_ms']} ms) to (b2)'s state, the "
+        f"forged block never stored; wire {r['bytes']} B sealed, seal {r['seal_ms']:.0f} ms, "
+        f"open {r['open_ms']:.0f} ms; routes {r['liar']['routes']} then {h['routes']} [{card}]")
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["blocksync"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["blocksync"]
     return out
 
 
@@ -3983,15 +4654,23 @@ def main(argv=None) -> int:
     # ---- phase 9: in-process consensus
     consensus = consensus_phase(dev, card, args.seed, kern, mul_rate)
 
+    # ---- phase 10: the verify mesh and block sync over p2p
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, card, kern, commits, chain)
+    blocksync = blocksync_phase(dev, card, args.seed, kern, chain)
+    blocksync["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10 took {blocksync['phase_s']:.1f} s (the mesh {mesh['seconds']:.1f} s) [{card}]")
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
                    rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
-                   consumers=consumers, replay=replay, ingest=ingest, consensus=consensus)
+                   consumers=consumers, replay=replay, ingest=ingest, consensus=consensus,
+                   mesh=mesh, blocksync=blocksync)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phases 10 and 11: the kernel line, the card, the contract line
+    # ---- phases 11 and 12: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

@@ -1,5 +1,5 @@
-"""Block sync: catch-up replay of stored chains (twin of
-`cometbft_tpu/blocksync/`'s replay engine; the block pool and the p2p
-reactor are not here yet)."""
+"""Block sync: catch-up replay of stored chains (`replay.py`) and of chains
+fetched from peers (`pool.py`, `reactor.py`); twin of
+`cometbft_tpu/blocksync/`."""
 
 from .replay import ReplayEngine, ReplayStats  # noqa: F401

@@ -93,12 +93,16 @@ class ReplayEngine:
         self.tenant = tenant
 
     def _pipeline_depth(self) -> int:
-        """Windows in flight at once: 2 (the device verifies w+1 while the
-        host applies w — deeper queues just park work behind one device),
-        or the explicit `depth`. The reference's mesh term, 1 + n_devices,
-        waits for the port's mesh."""
+        """Windows in flight at once, or the explicit `depth`. One device: 2
+        (the device verifies w+1 while the host applies w; deeper queues
+        just park work behind one device). A mesh: 1 + n_devices, so that
+        round-robin placement keeps every device holding a window while the
+        host applies."""
         if self.depth:
             return max(1, int(self.depth))
+        eng = ed25519._mesh_engine()
+        if eng is not None and eng.n_devices > 1:
+            return 1 + eng.n_devices
         return 2
 
     def _commit_for(self, height: int) -> Commit | None:

@@ -53,6 +53,21 @@ on the CPU (the kernels' plain versions) it keeps the ladder. Tests and
 `chip_smoke.py` pin that seam, and `NATIVE_MAX = 0` sends every batch to
 the device routes.
 
+With a verify mesh up (`parallel/mesh.py`: more than one GPU, or an
+engine installed through `parallel.mesh.set_engine`), two more things
+happen. A batch of n >= MESH_MIN goes to `_launch_mesh` when
+`_mesh_beats_single(n, bucket, device)` says so: the ladder route's rows,
+padded to a multiple of the device count and sharded over it (path
+"mesh"). And every batch the ladder route takes lands on the engine's
+next device round robin (streamed placement, a `crypto.stream_place`
+event). The model's mesh term is the ladder's host stage, its wire plus
+the mesh's calibrated per-shard staging, and the bucket's calibrated
+ladder device time over d plus the calibrated cross-device sum; on the
+CPU the mesh is never picked.
+
+Devices are keyed by index (`ops.field.device_key`): "cuda" and
+"cuda:0" name one card in the pubkey cache and the calibration tables.
+
 Each dispatch feeds `utils.metrics.crypto_metrics()` and, when tracing
 is on, one `crypto.batch_verify` span with the route and the model's
 terms (`_record_dispatch`).
@@ -72,6 +87,7 @@ import numpy as np
 import torch
 
 from ..ops import sha512 as _sha
+from ..ops.field import device_key
 from ..ops.ed25519_verify import (
     DELTA_META_HEADER,
     DELTA_META_LEN,
@@ -80,8 +96,10 @@ from ..ops.ed25519_verify import (
     verify_batch,
     verify_batch_cached_a,
     verify_batch_delta,
+    verify_batch_prehashed,
 )
 from ..ops.msm import rlc_verify_stream
+from ..parallel import mesh as _mesh
 from ..utils import trace as _trace
 from ..utils.metrics import crypto_metrics
 from . import ed25519_ref as ref
@@ -107,6 +125,10 @@ RLC_MIN = 4096
 # finishes there sooner than a device round trip. 0 disables the native
 # route (the seam that forces the device routes).
 NATIVE_MAX = 1024
+
+# At and above this size the sharded mesh is considered (the reference's
+# threshold): below it the d per-shard transfers eat the device-time split.
+MESH_MIN = 4096
 
 # The structured-wire (delta) route is considered for DELTA_MIN <= n and
 # buckets up to DELTA_MAX_BUCKET (the reference's bounds, so that the same
@@ -248,6 +270,23 @@ def _terms(b: int, dev: torch.device) -> dict:
     return _TERMS[key]
 
 
+def _shard_terms(k: int, dev: torch.device) -> dict:
+    """A mesh shard's stages at k lanes, timed at the first decision for k:
+    one warm `verify_batch_prehashed` (what each shard runs, A and R
+    decompressed in it) on throwaway lanes, its issue and device seconds."""
+    key = (k, str(dev), "shard")
+    if key not in _TERMS:
+        x = np.random.default_rng(k).integers(0, 256, (k, 128), dtype=np.uint8)
+        x[:, 95] &= 0x0F  # S and k under 2^252, as `_calibrate` draws S
+        x[:, 127] &= 0x0F
+        t = torch.from_numpy(x).to(dev)
+        live = torch.ones(k, dtype=torch.bool, device=dev)
+        issue, dev_s = _timed_launch(lambda: verify_batch_prehashed(
+            t[:, :32], t[:, 32:64], t[:, 64:96], t[:, 96:], live), dev)
+        _TERMS[key] = {"issue_s": issue, "device_s": dev_s}
+    return _TERMS[key]
+
+
 def dispatch_model(n: int, b: int, device="cuda") -> dict:
     """The modeled stage times (seconds) of an n-lane batch in bucket b on
     each device route of a CUDA `device`. A route's pipelined time is that
@@ -255,8 +294,17 @@ def dispatch_model(n: int, b: int, device="cuda") -> dict:
     launches: the same thread does both), wire (bytes over the probed
     link) or device (the bucket's event-timed device half). The delta
     route's wire is its packed buffer at the calibration batch's middle
-    width (8 bytes a lane, as vote sign bytes have it)."""
-    dev = torch.device(device)
+    width (8 bytes a lane, as vote sign bytes have it).
+
+    With a calibrated mesh of more than one device (`_mesh_engine`), the
+    sharded route's term is added, from a shard's own stages at b/d lanes
+    (`_shard_terms`): host, the ladder's pack of n lanes and d issues of a
+    shard's launches (one thread issues every shard); wire, the ladder's
+    plus d per-shard stagings at the mesh's calibrated fixed cost; device,
+    a shard's time plus the calibrated cross-device sum, d times a shard's
+    time where the shards are logical shards of fewer cards (they run one
+    after another)."""
+    dev = device_key(device)
     bw = _link_mbps(dev) * 1e6
     t = _terms(b, dev)
     routes = {"ladder": {"wire": _WIRE_LADDER_B * b / bw, "device": t["ladder_s"],
@@ -264,7 +312,19 @@ def dispatch_model(n: int, b: int, device="cuda") -> dict:
     for r in ("rlc", "delta"):
         routes[r] = {"wire": t[f"{r}_wire_b"] / bw, "device": t[f"{r}_s"],
                      "host": n * t[f"{r}_us"] * 1e-6 + t[f"{r}_issue_s"]}
-    return {"link_mbps": _LINK_MBPS[str(dev)], "terms": t, **routes,
+    extra = {}
+    eng = _mesh_engine()
+    if eng is not None and eng.n_devices > 1 and eng.on_gpu:
+        mt = eng.dispatch_terms()
+        if mt["calibrated"]:
+            d = eng.n_devices
+            ts = _shard_terms(b // d, dev)
+            serial = d // len(set(eng.devices))
+            routes["mesh"] = {"wire": routes["ladder"]["wire"] + d * mt["put_fixed_s"],
+                              "device": serial * ts["device_s"] + mt["collective_s"],
+                              "host": n * t["ladder_us"] * 1e-6 + d * ts["issue_s"]}
+            extra["n_devices"] = d
+    return {"link_mbps": _LINK_MBPS[str(dev)], "terms": t, **routes, **extra,
             **{f"t_{r}": max(st.values()) for r, st in routes.items()}}
 
 
@@ -278,6 +338,19 @@ def _rlc_beats_ladder(n: int, b: int, device) -> bool:
     return m["t_rlc"] < m["t_ladder"]
 
 
+def _mesh_beats_single(n: int, b: int, device) -> bool:
+    """Whether the sharded mesh should take an n-lane batch in bucket b: its
+    modeled time against the best single-device route (the ladder, or RLC
+    from RLC_MIN) of the same calibrated model; never on the CPU."""
+    if torch.device(device).type != "cuda":
+        return False
+    m = dispatch_model(n, b, device)
+    if "t_mesh" not in m:
+        return False
+    best = m["t_ladder"] if n < RLC_MIN else min(m["t_ladder"], m["t_rlc"])
+    return m["t_mesh"] < best
+
+
 def _delta_beats_prehashed(n: int, b: int, device) -> bool:
     """Whether the structured-wire (delta) route should take an n-lane
     batch in bucket b instead of the prehashed ladder: by the calibrated
@@ -286,6 +359,12 @@ def _delta_beats_prehashed(n: int, b: int, device) -> bool:
         return False
     m = dispatch_model(n, b, device)
     return m["t_delta"] < m["t_ladder"]
+
+
+def _mesh_engine():
+    """The process's verify mesh (`parallel.mesh.get_engine`, which owns the
+    policy), or None when it is off."""
+    return _mesh.get_engine()
 
 
 def _pack_rsk_rows(n: int, sig_blob, pub_blob, msg_blob, msg_lens, out: np.ndarray) -> None:
@@ -381,6 +460,8 @@ class Ed25519PrivKey(PrivKey):
 
 
 def _resolve_device(device) -> torch.device:
+    """`device` checked and keyed (`ops.field.device_key`: "cuda" becomes
+    the current card's index, so caches see one card)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -389,7 +470,7 @@ def _resolve_device(device) -> torch.device:
             )
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
-    return dev
+    return device_key(dev)
 
 
 class Ed25519BatchVerifier(BatchVerifier):
@@ -499,6 +580,10 @@ class Ed25519BatchVerifier(BatchVerifier):
                 pending = self._native_batch()
                 if pending is not None:
                     path = "native"
+            if pending is None and n >= MESH_MIN:
+                eng = _mesh_engine()
+                if eng is not None and _mesh_beats_single(n, _bucket(n), self.device):
+                    pending, path = self._launch_mesh(eng), "mesh"
             if pending is None and n >= RLC_MIN and _rlc_beats_ladder(n, _bucket(n), self.device):
                 pending = self._launch_rlc()
                 if pending is not None:
@@ -526,9 +611,13 @@ class Ed25519BatchVerifier(BatchVerifier):
         pending._t0 = t0
         if _trace.enabled:
             fields = {"path": path, "n": n}
-            if path in ("ladder", "rlc", "delta") and self.device.type == "cuda":
+            mdl = None
+            if path in ("ladder", "rlc", "delta", "mesh") and self.device.type == "cuda":
                 mdl = dispatch_model(n, _bucket(n), self.device)
+            if mdl is not None and path in mdl:
                 stages = mdl[path]
+                if path == "mesh":
+                    fields["n_devices"] = mdl["n_devices"]
                 fields.update(model_host_ms=round(stages["host"] * 1e3, 3),
                               model_wire_ms=round(stages["wire"] * 1e3, 3),
                               model_device_ms=round(stages["device"] * 1e3, 3),
@@ -578,25 +667,29 @@ class Ed25519BatchVerifier(BatchVerifier):
                        np.asarray(self._msg_lens, np.uint64), view)
         return rsk
 
-    def _decompress_pubkeys(self, n: int, b: int, with_encodings: bool = False) -> tuple:
+    def _decompress_pubkeys(self, n: int, b: int, with_encodings: bool = False,
+                            dev=None) -> tuple:
         """(ok_a, neg_a), and the (b, 32) encodings on the device when asked,
-        of this verifier's pubkey column, padded to b lanes."""
+        of this verifier's pubkey column, padded to b lanes, on `dev` (the
+        verifier's device by default)."""
         a_host, view = self._host_buffer((b, 32))
         view[:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
-        a_dev = a_host.to(self.device, non_blocking=True)
+        a_dev = a_host.to(dev or self.device, non_blocking=True)
         ok_a, neg_a = decompress_pubkeys(a_dev)
         return (ok_a, neg_a, a_dev) if with_encodings else (ok_a, neg_a)
 
-    def _pubkeys_on_device(self, n: int, b: int, with_encodings: bool = False) -> tuple:
+    def _pubkeys_on_device(self, n: int, b: int, with_encodings: bool = False,
+                           dev=None) -> tuple:
         """`_decompress_pubkeys`, cached per pubkey column, bucket and device
         (and apart for the delta route, whose entries hold the encodings)."""
-        fp = (hashlib.sha256(self._pub_buf).digest(), b, str(self.device))
+        dev = dev or self.device
+        fp = (hashlib.sha256(self._pub_buf).digest(), b, str(dev))
         if with_encodings:
             fp = fp[:2] + ("delta",) + fp[2:]
         with _A_LOCK:
             cached = _A_CACHE.get(fp)
         if cached is None:
-            cached = self._decompress_pubkeys(n, b, with_encodings)
+            cached = self._decompress_pubkeys(n, b, with_encodings, dev)
             with _A_LOCK:
                 _A_CACHE[fp] = cached
                 while len(_A_CACHE) > _A_CACHE_SIZE:
@@ -622,10 +715,37 @@ class Ed25519BatchVerifier(BatchVerifier):
             if self._delta:
                 self._device_path = "delta"
                 return self._launch_device_delta(self._delta)
-        rsk = self._pack_rsk(n, b).to(self.device, non_blocking=True)
-        ok_a, neg_a = self._pubkeys_on_device(n, b)
-        live = torch.arange(b, device=self.device) < n
+        # streamed placement: with a mesh up, each whole batch lands on the
+        # next mesh device round robin, so d independent commits verify at
+        # once with no sum (the pubkey cache keeps a copy per device)
+        dev = self.device
+        eng = _mesh_engine()
+        if eng is not None and eng.n_devices > 1 and eng.devices[0].type == dev.type:
+            dev = eng.next_device()
+            if _trace.enabled:
+                _trace.emit("crypto.stream_place", "event", device=str(dev), n=n, b=b)
+        rsk = self._pack_rsk(n, b).to(dev, non_blocking=True)
+        ok_a, neg_a = self._pubkeys_on_device(n, b, dev=dev)
+        live = torch.arange(b, device=dev) < n
         return verify_batch_cached_a(ok_a, neg_a, rsk, live)
+
+    def _launch_mesh(self, eng):
+        """Shard one mega-batch over every mesh device: the ladder route's
+        96 B a lane R||S||k rows, padded so that B divides the mesh (dead
+        lanes go out with live=False), the pubkey column staged once per
+        set in the engine's cache. Returns a PendingBatch over the
+        un-fetched all-ok scalar and the per-shard bitmaps."""
+        n = self.count()
+        b = _mesh.pad_to_shards(n, eng.n_devices, bucket=_bucket(n))
+        rsk = self._pack_rsk(n, b)
+        a_host, a_view = self._host_buffer((b, 32))
+        a_view[:n] = np.frombuffer(self._pub_buf, np.uint8).reshape(n, 32)
+        live = torch.arange(b) < n
+        if self.device.type == "cuda":
+            live = live.pin_memory()
+        all_ok, bits = eng.submit(a_host, rsk, live, fp=hashlib.sha256(self._pub_buf).digest())
+        self._device_path = "mesh"
+        return PendingBatch(bits, all_ok, n, list(self._precheck_fail), [], [])
 
     def _pack_device_sha(self, n: int, b: int) -> tuple[torch.Tensor, dict, list[int]]:
         """Host half of the device-SHA route: A, R, S, the SHA-512-padded
@@ -848,7 +968,10 @@ class PendingBatch:
         if dev_all_ok and not any(self._precheck_fail):
             out = [True] * self._n
         else:
-            bits = self._dev[: self._n].cpu().tolist()
+            dev = self._dev
+            if isinstance(dev, list):  # the mesh's per-shard bitmaps
+                dev = _mesh.gather_bits(dev)
+            bits = dev[: self._n].cpu().tolist()
             out = [bool(x) and not bad for x, bad in zip(bits, self._precheck_fail)]
         for i, item in zip(self._oversize_idx, self._oversize_items):
             out[i] = not self._precheck_fail[i] and ref.verify(*item)

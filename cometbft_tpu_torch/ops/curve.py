@@ -65,9 +65,13 @@ def _host_base_niels() -> np.ndarray:
 BASE_NIELS = torch.from_numpy(_host_base_niels())  # (9, 3, 22), host copy
 
 
-@functools.lru_cache(maxsize=None)
-def base_niels(device: torch.device) -> torch.Tensor:
+def base_niels(device) -> torch.Tensor:
     """BASE_NIELS on `device` (cached; never mutate)."""
+    return _base_niels(F.device_key(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _base_niels(device: torch.device) -> torch.Tensor:
     return BASE_NIELS.to(device)
 
 

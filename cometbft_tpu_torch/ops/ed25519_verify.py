@@ -59,15 +59,18 @@ def verify_batch_prehashed(a_bytes, r_bytes, s_bytes, k_bytes, live):
     """Batched ZIP-215 verify with the challenge scalar computed host-side.
 
     a_bytes, r_bytes, s_bytes, k_bytes: (B, 32) uint8 (k little-endian,
-    canonical k < L); live: (B,) bool padding mask.
+    canonical k < L); live: (B,) bool padding mask. A and R decompress
+    together, in one `decompress` launch over 2B lanes (each shard of the
+    mesh verifies through here).
     """
+    b = a_bytes.shape[0]
     k_digits = SC.digits_from_bytes(k_bytes)
     s_digits = SC.digits_from_bytes(s_bytes)
     s_ok = SC.lt_l(s_bytes)
-    ok_a, a_pt = C.decompress(a_bytes)
-    ok_r, r_pt = C.decompress(r_bytes)
+    ok, pt = C.decompress(torch.cat([a_bytes, r_bytes]))
+    a_pt, r_pt = tuple(c[:, :b] for c in pt), tuple(c[:, b:] for c in pt)
     X, Y, Z = C.ladder_sub_mul8(s_digits, k_digits, C.neg(a_pt), r_pt)
-    return _finish(ok_a, ok_r, s_ok, X, Y, Z, live)
+    return _finish(ok[:b], ok[b:], s_ok, X, Y, Z, live)
 
 
 def decompress_pubkeys(a_bytes):

@@ -72,10 +72,24 @@ def on_gpu(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def const(x: int, device: torch.device) -> torch.Tensor:
+def device_key(device) -> torch.device:
+    """`device` as the port's caches key it: a CUDA device always carries its
+    index ("cuda" is the current device), so that "cuda" and "cuda:0" are one
+    card and not two cache entries."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def const(x: int, device) -> torch.Tensor:
     """Constant field element shaped (NLIMBS, 1) on `device` (cached; never
     mutate the returned tensor)."""
+    return _const(x, device_key(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _const(x: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(from_int(x)[:, None].copy()).to(device)
 
 

@@ -18,8 +18,13 @@ backends' metrics line up:
   metrics come with `light/serve.py`;
 - `ConsensusMetrics`, fed by `consensus/state.py` and `utils/txlife.py`
   (all but the reference's `cert_gossip_total`, which only the
-  certificate path feeds). The block-sync bundle comes with the reactor
-  that records it.
+  certificate path feeds);
+- `P2PMetrics` (`p2p/conn.py`, `p2p/switch.py`; `peer_height` and
+  `peer_round` wait for the consensus reactor) and `BlockSyncMetrics`
+  (`blocksync/pool.py`, `blocksync/reactor.py`; `cert_verify_seconds`
+  waits for replay's certificate branch);
+- the mesh's `mesh_devices` and `mesh_batches_total` in `CryptoMetrics`
+  (`parallel/mesh.py`).
 
 `crypto_metrics()`, `state_metrics()`, ... hand out the process's bundle
 against `DEFAULT_REGISTRY`; `reset_bundles()` clears them all (tests).
@@ -50,6 +55,12 @@ class _Metric:
         """Snapshot of the current samples, keyed by label-value tuple."""
         with self._lock:
             return dict(self._values)
+
+    def remove(self, *labels) -> None:
+        """Drop one labelled series (e.g. a disconnected peer's gauge)."""
+        key = self._key(tuple(labels))
+        with self._lock:
+            self._values.pop(key, None)
 
 
 class Counter(_Metric):
@@ -278,6 +289,14 @@ class CryptoMetrics:
         self.calibration_us_per_sig = reg.gauge(
             "crypto", "calibration_us_per_sig", "Calibrated host-stage dispatch terms",
             labels=("term",))
+        self.mesh_devices = reg.gauge(
+            "crypto", "mesh_devices",
+            "Device count of the active verify mesh (0/absent = mesh off)")
+        self.mesh_batches_total = reg.counter(
+            "crypto", "mesh_batches_total",
+            "Batches placed per mesh device: sharded mega-batch shards "
+            "and streamed whole-commit placements (skew attribution)",
+            labels=("device", "mode"))
         self.sched_queue_depth = reg.gauge(
             "crypto", "sched_queue_depth",
             "Verify requests queued in the shared scheduler, per tenant",
@@ -291,6 +310,68 @@ class CryptoMetrics:
             "crypto", "sched_batch_sigs",
             "Signatures per coalesced scheduler dispatch",
             buckets=CryptoMetrics.BATCH_BUCKETS)
+
+
+class P2PMetrics:
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.peers = reg.gauge("p2p", "peers", "Connected peers")
+        self.message_receive_bytes_total = reg.counter(
+            "p2p", "message_receive_bytes_total", "Bytes received",
+            labels=("chan",))
+        self.message_send_bytes_total = reg.counter(
+            "p2p", "message_send_bytes_total", "Bytes sent",
+            labels=("chan",))
+        # fed by the consensus reactor's peer state (not ported yet)
+        self.peer_height = reg.gauge(
+            "p2p", "peer_height", "Last known consensus height per peer",
+            labels=("peer",))
+        self.peer_round = reg.gauge(
+            "p2p", "peer_round", "Last known consensus round per peer",
+            labels=("peer",))
+        self.broadcast_queue_depth = reg.gauge(
+            "p2p", "broadcast_queue_depth",
+            "Frames waiting in the async broadcast queue")
+        self.broadcast_queue_dropped = reg.counter(
+            "p2p", "broadcast_queue_dropped",
+            "Frames dropped from a saturated broadcast queue")
+        self.broadcast_queue_wait_seconds = reg.histogram(
+            "p2p", "broadcast_queue_wait_seconds",
+            "Enqueue->send wait of frames in the async broadcast queue",
+            buckets=TX_STAGE_BUCKETS)
+        self.send_queue_depth = reg.gauge(
+            "p2p", "send_queue_depth",
+            "Messages queued on an MConnection send channel",
+            labels=("chan",))
+
+
+class BlockSyncMetrics:
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.syncing = reg.gauge("blocksync", "syncing",
+                                 "1 while block sync is running")
+        self.latest_block_height = reg.gauge(
+            "blocksync", "latest_block_height",
+            "Highest height applied by block sync")
+        self.num_peers = reg.gauge("blocksync", "num_peers",
+                                   "Peers in the block pool")
+        self.pending_requests = reg.gauge(
+            "blocksync", "pending_requests",
+            "In-flight block requests without a block yet")
+        self.peer_height = reg.gauge(
+            "blocksync", "peer_height",
+            "Reported chain height per pool peer", labels=("peer",))
+        self.blocks_applied_total = reg.counter(
+            "blocksync", "blocks_applied_total",
+            "Blocks verified and applied by block sync")
+        self.bad_blocks_total = reg.counter(
+            "blocksync", "bad_blocks_total",
+            "Blocks that failed verification (request redone)")
+        # fed by replay's certificate branch, which the port refuses (no BLS yet)
+        self.cert_verify_seconds = reg.histogram(
+            "blocksync", "cert_verify_seconds",
+            "Certificate (one-pairing) commit verification wall time "
+            "during replay, per commit", buckets=TX_STAGE_BUCKETS)
 
 
 _BUNDLES: dict[str, object] = {}
@@ -327,6 +408,14 @@ def store_metrics() -> StoreMetrics:
 
 def crypto_metrics() -> CryptoMetrics:
     return _bundle("crypto", CryptoMetrics)
+
+
+def p2p_metrics() -> P2PMetrics:
+    return _bundle("p2p", P2PMetrics)
+
+
+def blocksync_metrics() -> BlockSyncMetrics:
+    return _bundle("blocksync", BlockSyncMetrics)
 
 
 def reset_bundles() -> None:

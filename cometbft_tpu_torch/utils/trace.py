@@ -67,6 +67,10 @@ SPAN_REGISTRY = {
     "state.apply_block": "ApplyBlock with validate/finalize/commit/save stage breakdown",
     "crypto.batch_verify": "one batch-verify dispatch: path, n, modeled host/wire/device terms",
     "crypto.commit_partition": "per-curve share of one commit verification",
+    "crypto.mesh_submit": "one sharded mega-batch across the verify mesh (n/b/n_devices/shard_lanes)",
+    "crypto.stream_place": "one streamed commit placed on a mesh device (device/n/b)",
+    "blocksync.block": "one fast-synced block: fetch→verify→apply breakdown",
+    "p2p.zero_copy_send": "one multiplexed message fully packetized via memoryview slicing (chan/bytes/packets)",
     "crypto.sched_coalesce": "one shared-scheduler dispatch: n_requests/sigs/tenants/sources/per_tenant_sigs (crypto/sched.py)",
     "consensus.step": "span closing the consensus step being left (height/round/dur_ms/next)",
     "consensus.finalize_commit": "block decided at height/round, with tx count",

@@ -499,3 +499,159 @@ def test_split_timer_takes_nested_calls_out_of_their_callers():
                                       {(): {"count": 3, "sum": 5.0},
                                        ("x",): {"count": 1, "sum": 1.0}}) == {
         (): (2, 3.0), ("x",): (1, 1.0)}
+
+
+# ---- phase 10's helpers (the verify mesh, block sync over p2p)
+
+@pytest.fixture(scope="module")
+def sync_world():
+    """The reference's 5-block, 4-validator chain, crossed to the port as KV
+    items: (reference store, its genesis, the port's store, its genesis)."""
+    from cometbft_tpu.utils.factories import make_chain
+    from cometbft_tpu_torch.state.types import State
+    from cometbft_tpu_torch.storage import BlockStore, MemKV
+
+    store, _, genesis, _ = make_chain(5, n_validators=4, chain_id="p10-chain", backend="cpu",
+                                      txs_per_block=1)
+    kv = MemKV()
+    kv.write_batch(sorted(store._db.iterate_prefix(b"")))
+    return store, genesis, BlockStore(kv), State.decode(genesis.encode())
+
+
+def test_store_view_serves_to_its_top_and_forges_one_signature(sync_world):
+    _, _, store, _ = sync_world
+    view = chip_smoke.StoreView(store, 4, forge=(3, 1))
+    assert (view.height(), view.base()) == (4, store.base()) and view.load_block(5) is None
+    honest, forged = store.load_block(3), view.load_block(3)
+    sigs = [cs.signature for cs in honest.last_commit.signatures]
+    fsigs = [cs.signature for cs in forged.last_commit.signatures]
+    assert [i for i in range(4) if sigs[i] != fsigs[i]] == [1]
+    assert fsigs[1][0] == sigs[1][0] ^ 1 and forged.header.hash() == honest.header.hash()
+    assert view.load_block(2).encode() == store.load_block(2).encode()
+
+
+def test_host_state_and_refusal_match_the_reference(sync_world):
+    """`host_state` against the reference's executor over the same blocks,
+    and `host_refusal` of a forged last commit against the reference's
+    `verify_commit_light` on the same commit."""
+    from cometbft_tpu.abci.client import AppConns
+    from cometbft_tpu.abci.kvstore import KVStoreApp
+    from cometbft_tpu.state.execution import BlockExecutor
+    from cometbft_tpu.types.block import block_id_for
+    from cometbft_tpu.types.validation import verify_commit_light
+
+    ref_store, ref_genesis, store, genesis = sync_world
+    ex, state = BlockExecutor(AppConns(KVStoreApp()), backend="cpu"), ref_genesis.copy()
+    for h in range(1, 5):
+        blk = ref_store.load_block(h)
+        state = ex.apply_block(state, block_id_for(blk), blk)
+        if h == 2:
+            at_2 = state
+    assert chip_smoke.host_state(store, genesis, 4).encode() == state.encode()
+    got = chip_smoke.host_refusal(chip_smoke.StoreView(store, 5, forge=(4, 2)),
+                                  chip_smoke.host_state(store, genesis, 2), 3)
+    ref4 = ref_store.load_block(4)
+    ref4.last_commit.signatures[2].signature = bytes(
+        [ref4.last_commit.signatures[2].signature[0] ^ 1]) + ref4.last_commit.signatures[2].signature[1:]
+    ref4.last_commit.invalidate_memos()
+    want = chip_smoke.outcome_of(lambda: verify_commit_light(
+        at_2.chain_id, at_2.validators, block_id_for(ref_store.load_block(3)), 3,
+        ref4.last_commit, backend="cpu"))
+    assert got == want == ("ErrInvalidSignature", "invalid signature at index 2")
+    assert chip_smoke.host_refusal(chip_smoke.StoreView(store, 5), chip_smoke.host_state(
+        store, genesis, 2), 3) is None
+
+
+def test_blocksync_phase_rehearsal(sync_world, monkeypatch, tmp_path):
+    """Phase 10 (b) on the CPU at a small size (device "cpu", the plain
+    ladder for every check): (b1) on the crossed chain at the reference's
+    rates, (b2) and (b3) on a port chain; every check of the phase holds."""
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import kernels as K
+    from cometbft_tpu_torch.utils import trace
+
+    for fn, name in (("decompress_plain", "decompress"),
+                     ("ladder_sub_mul8_plain", "ladder_sub_mul8")):
+        orig = getattr(C, fn)
+        monkeypatch.setattr(C, fn, lambda *a, _o=orig, _n=name: (
+            K.launches.__setitem__(_n, K.launches[_n] + 1), _o(*a))[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke, "REPLAY_CHAIN", "p10-chain")
+    for name, value in (("SYNC_TOP", 2), ("SYNC_VALIDATORS", 4), ("SYNC_BLOCKS", 3),
+                        ("SYNC_FORGED", (2, 1)), ("SYNC_TIMEOUT_S", 60.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    _, _, store, genesis = sync_world
+    kern = {n: {"launches_by_route": {}, "launches": 0} for n in chip_smoke.SOURCES}
+    try:
+        out = chip_smoke.blocksync_phase(torch.device("cpu"), "cpu", 3, kern,
+                                         (store, None, genesis))
+    finally:
+        trace.disable()
+    assert out["b1"]["blocks"] == 1 and out["b2"]["blocks"] == 2
+    assert out["b2"]["routes"]["ladder"] >= 2 and out["b1"]["verify_ms"] > 0
+    assert out["b2"]["quiet"]["verify_ms"] > 0 and out["b2"]["quiet"]["apply_ms"] > 0
+    assert out["b3"]["liar"]["height"] == 0 and out["b3"]["bad_blocks"] >= 1
+    assert out["b3"]["refusal"][0][2] == ("ErrInvalidSignature", "invalid signature at index 1")
+    assert out["b3"]["honest"]["blocks"] == 2 and out["b3"]["sealed_frames"] > 0
+    assert kern["ladder_sub_mul8"]["launches_by_route"]["blocksync"] > 0
+
+
+def test_mesh_check_holds_shards_against_one_device():
+    """`check_sharded` over 2 CPU shards: a batch with its last lane broken
+    and an empty one agree with the single device; a sharded verifier that
+    drops a shard's verdict is caught."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    cpu = torch.device("cpu")
+    items = []
+    for i in range(5):
+        seed = bytes([i + 1]) * 32
+        items.append((ref.pubkey_from_seed(seed), b"m%d" % i, ref.sign(seed, b"m%d" % i)))
+    bad = chip_smoke.broken_lanes(items, [4])
+    assert bad[:4] == items[:4] and bad[4][2][0] == items[4][2][0] ^ 1
+    eng = M.MeshVerifyEngine([cpu, cpu])
+    assert chip_smoke.check_sharded("t", eng, cpu, *chip_smoke.mesh_arrays(bad, 6)) is False
+    assert chip_smoke.check_sharded("t", eng, cpu, *chip_smoke.mesh_arrays([], 2)) is True
+
+    def lying(a, rsk, live):
+        ok, bits = eng.submit(a, rsk, live)
+        return ok, [bits[0], torch.ones_like(bits[1])]
+
+    with pytest.raises(AssertionError, match="sharded all-ok"):
+        chip_smoke.check_sharded("t", lying, cpu, *chip_smoke.mesh_arrays(bad, 6))
+    assert [len(d) for d in chip_smoke.mesh_layouts(cpu)] == list(chip_smoke.MESH_SHARDS)
+
+
+def test_mesh_shard_check_takes_the_last_shard_and_catches_a_wrong_ladder(monkeypatch):
+    """`mesh_shard_check` over 2 CPU shards of a 6-lane batch (lane 4
+    broken, lane 5 padding): it keeps the last shard's 3 lanes, checks
+    `decompress` over 6 and the ladder over 3, and a ladder that differs
+    from its plain version on one lane is caught."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.parallel import mesh as M
+
+    cpu = torch.device("cpu")
+    items = []
+    for i in range(5):
+        seed = bytes([i + 1]) * 32
+        items.append((ref.pubkey_from_seed(seed), b"m%d" % i, ref.sign(seed, b"m%d" % i)))
+    arrays = chip_smoke.mesh_arrays(chip_smoke.broken_lanes(items, [4]), 6)
+    eng = M.MeshVerifyEngine([cpu, cpu])
+    got = chip_smoke.mesh_shard_check(eng, *arrays)
+    assert got["shard_lanes"] == 3 and got["decompress_lanes"] == 6
+    assert got["decompress_mismatches"] == got["ladder_mismatches"] == 0
+    real = C.ladder_sub_mul8
+
+    def off_by_one(*args):
+        X, Y, Z = real(*args)
+        X = X.clone()
+        X[0, 1] += 1
+        return X, Y, Z
+
+    monkeypatch.setattr(C, "ladder_sub_mul8", off_by_one)
+    with pytest.raises(AssertionError, match="ladder_sub_mul8 at B=3 1 lanes"):
+        chip_smoke.mesh_shard_check(eng, *arrays)

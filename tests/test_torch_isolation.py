@@ -1,7 +1,8 @@
 """The port stands alone and never falls back.
 
 - Importing every module of `cometbft_tpu_torch`, and `chip_smoke`, loads
-  neither JAX nor `cometbft_tpu`.
+  neither JAX nor `cometbft_tpu`, nor the `cryptography` package (the p2p
+  layer's ciphers are the port's own).
 - A kernel wrapper handed a CUDA request with no kernel library raises; it
   does not run the plain version instead. A CPU tensor never reaches a
   kernel launcher.
@@ -37,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(n for n in sys.modules
-                     if n.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu"))
+                     if n.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu", "cryptography"))
         missing = set(["cometbft_tpu_torch.crypto.native", "cometbft_tpu_torch.utils.trace",
                        "cometbft_tpu_torch.utils.metrics", "cometbft_tpu_torch.ops.sha512",
                        "cometbft_tpu_torch.graft_entry", "cometbft_tpu_torch.encoding.proto",
@@ -67,7 +68,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                        "cometbft_tpu_torch.consensus.ticker", "cometbft_tpu_torch.consensus.wal",
                        "cometbft_tpu_torch.consensus.height_vote_set",
                        "cometbft_tpu_torch.consensus.state",
-                       "cometbft_tpu_torch.consensus.net"]) - set(names)
+                       "cometbft_tpu_torch.consensus.net", "cometbft_tpu_torch.parallel",
+                       "cometbft_tpu_torch.parallel.mesh", "cometbft_tpu_torch.crypto.x25519",
+                       "cometbft_tpu_torch.crypto.symmetric", "cometbft_tpu_torch.p2p",
+                       "cometbft_tpu_torch.p2p.key", "cometbft_tpu_torch.p2p.secret_connection",
+                       "cometbft_tpu_torch.p2p.conn", "cometbft_tpu_torch.p2p.transport",
+                       "cometbft_tpu_torch.p2p.switch", "cometbft_tpu_torch.blocksync.pool",
+                       "cometbft_tpu_torch.blocksync.reactor"]) - set(names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 50 else 0)
     """)
@@ -255,6 +262,6 @@ def test_span_names_are_registered_both_ways():
     from cometbft_tpu_torch.utils import trace
 
     src = "".join(p.read_text() for p in (ROOT / "cometbft_tpu_torch").rglob("*.py"))
-    emitted = set(re.findall(r"trace\.emit\(\s*\"([a-z_.]+)\"", src))
+    emitted = set(re.findall(r"trace\.emit\(\s*\"([a-z0-9_.]+)\"", src))
     assert emitted == set(trace.SPAN_REGISTRY)
     assert {k: ref_trace.SPAN_REGISTRY[k] for k in trace.SPAN_REGISTRY} == trace.SPAN_REGISTRY
