@@ -300,13 +300,59 @@ and never prints its last line):
      the median `verify_ms` and `apply_ms` of the `blocksync.block`
      spans, bytes sealed and the sealing and opening ms, routes and
      launches; `results.json` keys `mesh` and `blocksync`;
-11. one JSON line `{"kernels": [...]}` with each kernel's launches,
+11. the network reactors and state sync (`consensus/reactor.py`,
+   `mempool/reactor.py`, `evidence/reactor.py`, `p2p/{addrbook,pex}.py`,
+   `statesync/`), over TCP on 127.0.0.1, each leg with the launch counts
+   set to 0 just before it and read right after:
+   - (a) 4 validators, each a `ConsensusState` (executor on the card) with
+     its own `Transport`, `Switch` and the consensus, mempool, evidence and
+     PEX reactors, tests/test_node.py's timeouts; nodes 1-3 know only node
+     0's address and PEX meshes them (every node connected to the other
+     three, each in its address book); 64 kvstore txs submitted at node 3
+     and a prevote of validator 1 for another block than its own, sent to
+     node 0's consensus (as tests/test_evidence_reactor.py:45 sends it)
+     once node 0 holds validator 1's own prevote, until node 0's evidence
+     pool holds the DuplicateVoteEvidence; run until height 6, every tx and
+     the evidence are committed: every node's block hash and app hash equal
+     at each height, every tx in a block and read back from every app, the
+     evidence in one block on every node, no node stopped; then again with
+     the NATIVE_MAX seam at 0 to height 3, every last commit on the ladder,
+     and the first last commit's verifier through `batch_window_check` at
+     its bucket; logged: PEX's time to the mesh, blocks/s, the block
+     interval, the routes;
+   - (b) a raw peer sends phase 8 (a)'s first 4,096 signed txs (its planted
+     classes) to node B in mempool frames of 256; B admits through an
+     `AdmissionPipeline` at window 4,096 on the card and gossips what it
+     admitted to node C (the same config): every outcome at B equal to
+     `expected_ingest_outcome`'s, C's pool equal to B's, no refused tx
+     received by C; logged: admitted txs/s at B, window sizes, routes,
+     frames and bytes gossiped;
+   - (c) state sync: a source serves snapshots (its app the host's replay
+     into `KVStoreApp(snapshot_interval=...)`), chunks, light blocks and
+     blocks; a fresh node restores through `StateSyncReactor`, `Syncer`,
+     `LightStateProvider` and `LightClient(device="cuda")` over
+     `P2PLightProvider` (trusting block 1's hash), then block-syncs to the
+     tip through `BlockSyncReactor`: (c1) phase 7's chain served to 65
+     (snapshots at 40 and 60) with the NATIVE_MAX seam at 0 and the delta
+     route off, every check on the ladder, its first light check held
+     against the plain versions at bucket 1,024 with one lane broken; (c2) phase 10
+     (b2)'s 10,000-validator chain (a snapshot at 5); (c3) (c1) with a liar
+     advertising a snapshot at 62 of another state, which must be refused
+     with the reference's error before 60 is restored. Each: the restored
+     app's height and the verified header's app hash, at the tip the app's
+     state bytes and the node's state (but for the heights of the last
+     validator and params change, which a restore sets) the source's, a
+     light check on the card in (c1) and (c2); logged: seconds by stage
+     (discovery, light checks and ms a light block, of which the fetch,
+     chunks, block sync),
+     routes and launches; `results.json` key `network`;
+12. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-12. the card's name and power limit, then the last line
+13. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -2557,6 +2603,8 @@ def ingest_phase(dev, card, seed: int, kern: dict, chain, mul_rate: float) -> di
 
         # (e) the light client on phase 7's chain
         out["light"] = light_phase(dev, seed, counts, card, chain)
+        # (a)'s stream for phase 11's gossip leg (popped before results.json)
+        out["stream"] = (txs_a[:INGEST_TXS], {i for i in bad_a if i < INGEST_TXS})
     finally:
         trace.disable()
     out["seconds"] = time.perf_counter() - t_phase
@@ -3723,11 +3771,18 @@ class StoreView:
             blk.last_commit = with_flipped_signature(blk.last_commit, self.forge[1])
         return blk
 
+    def load_block_commit(self, h: int):
+        return self.inner.load_block_commit(h) if h < self.top else None
 
-def host_state(store, genesis, top: int):
+    def load_seen_commit(self, h: int):
+        return self.inner.load_seen_commit(h) if h <= self.top else None
+
+
+def host_state(store, genesis, top: int, app=None, state_store=None):
     """The state that applying blocks 1..top of `store` gives on the host:
     every last commit verified by the native engine (NATIVE_MAX raised over
-    every commit size), a fresh KVStoreApp."""
+    every commit size), `app` (a fresh KVStoreApp unless given); with
+    `state_store`, every state is saved there from genesis on."""
     from cometbft_tpu_torch.abci import AppConns, KVStoreApp
     from cometbft_tpu_torch.crypto import ed25519 as E
     from cometbft_tpu_torch.state.execution import BlockExecutor
@@ -3735,8 +3790,10 @@ def host_state(store, genesis, top: int):
 
     prev, E.NATIVE_MAX = E.NATIVE_MAX, 1 << 30
     try:
-        ex = BlockExecutor(AppConns(KVStoreApp()), device="cpu")
+        ex = BlockExecutor(AppConns(app or KVStoreApp()), state_store=state_store, device="cpu")
         state = genesis.copy()
+        if state_store is not None:
+            state_store.save(state)
         for h in range(1, top + 1):
             blk = store.load_block(h)
             state = ex.apply_block(state, block_id_for(blk), blk)
@@ -3934,6 +3991,7 @@ def blocksync_phase(dev, card, seed: int, kern: dict, chain) -> dict:
         if quiet.pop("state") != want:
             raise AssertionError("blocksync, (b2) without the wire: not the host's state")
         out["b2"]["quiet"] = quiet
+        out["chain"] = (store, genesis)  # for phase 11 (popped before results.json)
 
         # (b3) a lying peer alone, then an honest one too
         from cometbft_tpu_torch.abci import AppConns, KVStoreApp
@@ -4019,6 +4077,711 @@ def blocksync_phase(dev, card, seed: int, kern: dict, chain) -> dict:
     for name in SOURCES:
         kern[name]["launches_by_route"]["blocksync"] = sum(c[name] for c in counts.values())
         kern[name]["launches"] += kern[name]["launches_by_route"]["blocksync"]
+    return out
+
+
+# ---- phase 11: the network reactors and state sync
+
+TCP_CHAIN = "tcp-chain"
+TCP_NODES = 4
+TCP_HEIGHT = 6
+TCP_TXS = 64  # kvstore txs submitted at node 3
+TCP_PINNED_HEIGHT = 3  # the rerun with every last-commit check on the ladder
+TCP_CHECK_BAD_LANE = 1  # the tampered lane of the checked last commit
+TCP_PEX_INTERVAL_S = 0.5
+TCP_TIMEOUT_S = 120.0
+# tests/test_node.py's timeouts
+TCP_TIMEOUTS = {"propose": 0.6, "propose_delta": 0.2, "prevote": 0.3, "prevote_delta": 0.1,
+                "precommit": 0.3, "precommit_delta": 0.1, "commit": 0.1}
+GOSSIP_FRAME_TXS = 256  # txs a frame of the raw peer (one admission window at the default)
+GOSSIP_TIMEOUT_S = 300.0
+SS_C1_TOP = 65  # (c1): phase 7's chain served up to 65, a snapshot every 20 (40 and 60 kept)
+SS_C1_INTERVAL = 20
+SS_C1_CHECK_BUCKET = 1024  # (c1)'s light checks: 334 or 667 of 1,000 lanes, bucket 1,024
+SS_C1_CHECK_BAD_LANE = 101  # the tampered lane of (c1)'s checked light check
+SS_C2_INTERVAL = 5  # (c2): phase 10 (b2)'s 9 blocks, a snapshot at 5
+SS_CHUNK_BYTES = 256
+SS_LIAR_HEIGHT = 62  # (c3): the liar's snapshot, above the honest one at 60
+SS_LIAR_ERROR = ("ErrRejectSnapshot", "app rejected snapshot during apply")
+SS_TIMEOUT_S = 600.0
+
+
+def network_modules(package: str = "cometbft_tpu_torch"):
+    """`consensus_modules` and the modules of a node on p2p: the switch, PEX,
+    the three reactors, the mempool and the evidence pool."""
+    import importlib
+
+    m = consensus_modules(package)
+    for k, v in {"p2p": "p2p", "pex": "p2p.pex", "creactor": "consensus.reactor",
+                 "mreactor": "mempool.reactor", "ereactor": "evidence.reactor",
+                 "mempool": "mempool", "evidence": "evidence"}.items():
+        setattr(m, k, importlib.import_module(f"{package}.{v}"))
+    return m
+
+
+class TcpNet:
+    """Validators over TCP on 127.0.0.1: each a ConsensusState with its own
+    KVStore app, stores, CListMempool, EvidencePool, WAL and FilePV (keys
+    from `seed`), and a Transport and Switch with the consensus, mempool,
+    evidence and PEX reactors, wired as the reference's node wires them.
+    Node i is built from packages[i] (`network_modules`, the port's by
+    default) with its executor made with exec_kws[i]. Nodes 1.. know only
+    node 0's address and dial it; PEX connects the rest."""
+
+    def __init__(self, n: int, home, packages=None, exec_kws=None, seed: int = 0,
+                 chain_id: str = TCP_CHAIN, pex_interval_s: float = TCP_PEX_INTERVAL_S):
+        home = Path(home)
+        home.mkdir(parents=True, exist_ok=True)
+        packages = packages or ["cometbft_tpu_torch"] * n
+        exec_kws = exec_kws or [{"device": "cuda"}] * n
+        keys = [bytes(r) for r in np.random.default_rng(seed).integers(0, 256, (n, 32),
+                                                                          dtype=np.uint8)]
+        self.chain_id, self.mesh_s, self.t_start = chain_id, None, None
+        self.nodes = [self._node(network_modules(packages[i]), i, keys, home, exec_kws[i],
+                                 pex_interval_s) for i in range(n)]
+
+    def _node(self, m, i: int, keys, home, exec_kw: dict, pex_interval_s: float):
+        from types import SimpleNamespace
+
+        privs = [m.ed.Ed25519PrivKey(k) for k in keys]
+        genesis = m.execution.make_genesis_state(self.chain_id, m.types.ValidatorSet(
+            [m.types.Validator.from_pub_key(p.pub_key(), LOCKSTEP_POWER) for p in privs]))
+        app = m.kvstore.KVStoreApp()
+        bs, ss = m.storage.BlockStore(m.storage.MemKV()), m.storage.StateStore(m.storage.MemKV())
+        ss.save(genesis)
+        conns = m.client.AppConns(app)
+        mp = m.mempool.CListMempool(conns)
+        pool = m.evidence.EvidencePool(state_store=ss, block_store=bs, chain_id=self.chain_id)
+        ex = m.execution.BlockExecutor(conns, state_store=ss, block_store=bs, mempool=mp,
+                                       evidence_pool=pool, **exec_kw)
+        cs = m.state.ConsensusState(
+            chain_id=self.chain_id, sm_state=genesis.copy(), executor=ex, block_store=bs,
+            privval=m.file_pv.FilePV(privs[i], None, str(home / f"pv{i}.state.json")),
+            wal=m.wal.WAL(str(home / f"wal{i}")), timeouts=m.state.TimeoutConfig(**TCP_TIMEOUTS),
+            tx_source=lambda: mp.reap_columns(max_bytes=1 << 20), name=f"node{i}")
+        nk = m.p2p.NodeKey.generate()
+        tr = m.p2p.Transport(nk, m.p2p.NodeInfo(node_id=nk.node_id(), network=self.chain_id,
+                                                moniker=f"node{i}"))
+        sw = m.p2p.Switch(tr)
+        book = m.pex.AddrBook(None, self_id=nk.node_id())
+        reactors = [m.creactor.ConsensusReactor(cs), m.mreactor.MempoolReactor(mp),
+                    m.ereactor.EvidenceReactor(pool),
+                    m.pex.PexReactor(book, ensure_interval_s=pex_interval_s)]
+        for r in reactors:
+            r.set_switch(sw)
+            sw.add_reactor(r)
+        return SimpleNamespace(idx=i, m=m, priv=privs[i], app=app, block_store=bs,
+                               state_store=ss, mempool=mp, evidence_pool=pool, cs=cs,
+                               transport=tr, switch=sw, book=book, reactors=reactors,
+                               id=nk.node_id())
+
+    def start(self) -> None:
+        for nd in self.nodes:
+            nd.transport.listen()
+            nd.switch.start()
+        self.t_start = time.perf_counter()
+        for nd in self.nodes:
+            nd.reactors[3].start()
+        host, port = self.nodes[0].transport.node_info.listen_addr.split(":")
+        for nd in self.nodes[1:]:
+            nd.switch.dial_peer(host, int(port))
+        for nd in self.nodes:
+            nd.cs.start(replay_wal=False)
+
+    def meshed(self) -> bool:
+        """Every node connected to every other, each in its address book."""
+        for nd in self.nodes:
+            others = {o.id for o in self.nodes if o is not nd}
+            if {p.id for p in nd.switch.peers()} != others or not all(
+                    nd.book.has(o) for o in others):
+                return False
+        return True
+
+    def wait_mesh(self, timeout_s: float) -> float:
+        """Seconds from start to a full mesh (PEX)."""
+        deadline = time.monotonic() + timeout_s
+        while not self.meshed():
+            if time.monotonic() > deadline:
+                raise AssertionError("tcp: PEX formed no full mesh: peers " + str(
+                    [sorted(p.id[:8] for p in nd.switch.peers()) for nd in self.nodes]))
+            time.sleep(0.02)
+        self.mesh_s = time.perf_counter() - self.t_start
+        return self.mesh_s
+
+    def equivocate(self, at: int, byz: int, timeout_s: float):
+        """A prevote of validator `byz` for another block than its own
+        prevote of the round, signed with its key and sent to node `at`'s
+        consensus as a peer's (as tests/test_evidence_reactor.py:45 sends
+        it), once node `at` holds byz's own prevote: the conflicting vote is
+        never added, so no other node sees it and the pair is reported once.
+        Sent again at a later round or height only if it came too late to be
+        seen; returns the DuplicateVoteEvidence once node `at`'s pool holds
+        it."""
+        nd = self.nodes[at]
+        m, priv = nd.m, self.nodes[byz].priv
+        addr = priv.pub_key().address()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            seen = len(nd.cs.evidence)
+            h, r = nd.cs.height, nd.cs.round
+            idx, _ = nd.cs.validators.get_by_address(addr)
+            prevotes = nd.cs.votes.prevotes(r) if h >= 2 else None
+            own = prevotes.get_by_index(idx) if prevotes is not None else None
+            if own is None or own.height != h:
+                time.sleep(0.005)  # a validator set stored for the vote's height
+                continue
+            v = m.types.Vote(
+                type=m.types.SignedMsgType.PREVOTE, height=h, round=r,
+                block_id=m.types.BlockID(hash=b"\xee" * 32, part_set_header=(
+                    m.types.PartSetHeader(total=1, hash=b"\xee" * 32))),
+                timestamp=m.types.Timestamp.from_unix_ns(time.time_ns()),
+                validator_address=addr, validator_index=idx)
+            v.signature = priv.sign(v.sign_bytes(self.chain_id))
+            nd.cs.send(m.state.VoteMessage(v), peer_id="byz")
+            while time.monotonic() < deadline:
+                if len(nd.cs.evidence) > seen:
+                    pending = nd.evidence_pool.pending_evidence()
+                    if pending:
+                        return pending[0]
+                elif nd.cs.height > h + 1 and nd.cs.inbox.empty():
+                    time.sleep(0.1)
+                    if len(nd.cs.evidence) == seen:
+                        break  # handled at a later height: send one again
+                time.sleep(0.02)
+        raise AssertionError(f"tcp: no evidence in node {at}'s pool")
+
+    def stop(self) -> None:
+        for nd in self.nodes:
+            nd.cs.stop()
+        for nd in self.nodes:
+            nd.reactors[3].stop()
+            nd.reactors[2].stop()
+            nd.reactors[0].stop()
+            nd.switch.stop()
+            nd.mempool.close()
+
+    def outcome(self, txs, top: int) -> dict:
+        """What every node committed up to `top`: the block hashes and app
+        hashes (each node's equal, or an error), each tx in a block and read
+        back from every app, the evidence committed."""
+        nodes = self.nodes
+        hashes, app_hashes = [], []
+        for h in range(1, top + 1):
+            blocks = [nd.block_store.load_block(h) for nd in nodes]
+            if any(b is None for b in blocks) or len({b.hash() for b in blocks}) != 1:
+                raise AssertionError(f"tcp: the nodes' blocks at height {h} differ or miss")
+            hashes.append(blocks[0].hash().hex())
+            if h > 1:
+                app_hashes.append(blocks[0].header.app_hash.hex())
+        evidence = []
+        for nd in nodes:
+            evs = [(h, ev.hash().hex()) for h in range(1, nd.block_store.height() + 1)
+                   for ev in nd.block_store.load_block(h).evidence]
+            evidence.append(evs)
+        missing = {}
+        for nd in nodes:
+            committed = {tx for h in range(1, nd.block_store.height() + 1)
+                         for tx in nd.block_store.load_block(h).data.txs}
+            lost = [tx for tx in txs if tx not in committed or nd.app.query(
+                "", tx.partition(b"=")[0]).value != tx.partition(b"=")[2]]
+            if lost:
+                missing[nd.idx] = len(lost)
+        return {"block_hashes": hashes, "app_hashes": app_hashes, "evidence": evidence,
+                "missing_txs": missing}
+
+
+def run_tcp_net(net, txs, top: int, timeout_s: float, evidence_from=None) -> dict:
+    """Start `net`, wait for PEX's full mesh, submit `txs` at the last node
+    and, with `evidence_from` = (at, byz), an equivocation at node `at`;
+    run until every node committed `top`, every tx and the evidence; stop.
+    Returns the timings, the evidence and `net.outcome`."""
+    net.start()
+    try:
+        mesh_s = net.wait_mesh(timeout_s)
+        for tx in txs:
+            net.nodes[-1].mempool.check_tx(tx)
+        ev = net.equivocate(*evidence_from, timeout_s) if evidence_from else None
+        deadline = time.monotonic() + timeout_s
+
+        def done():
+            if min(nd.cs.sm_state.last_block_height for nd in net.nodes) < top:
+                return False
+            for nd in net.nodes:
+                h = nd.block_store.height()
+                blocks = [nd.block_store.load_block(i) for i in range(1, h + 1)]
+                if ev is not None and not any(b.evidence for b in blocks):
+                    return False
+                if not set(txs) <= {tx for b in blocks for tx in b.data.txs}:
+                    return False
+            return True
+
+        while not done():
+            if time.monotonic() > deadline or any(nd.cs._stopped.is_set() for nd in net.nodes):
+                raise AssertionError(
+                    f"tcp: heights {[nd.cs.sm_state.last_block_height for nd in net.nodes]}, "
+                    f"stopped {[nd.cs.halt_error for nd in net.nodes if nd.cs._stopped.is_set()]}")
+            time.sleep(0.05)
+        wall = time.perf_counter() - net.t_start
+        low = min(nd.cs.sm_state.last_block_height for nd in net.nodes)
+        stopped = [nd.idx for nd in net.nodes if nd.cs._stopped.is_set()]
+    finally:
+        net.stop()
+    return {"mesh_s": mesh_s, "wall_s": wall, "height": low, "duplicate_vote": ev,
+            "stopped": stopped, **net.outcome(txs, low)}
+
+
+def tcp_leg(dev, card, counts: dict, home, seed: int, mul_rate: float) -> dict:
+    """(a): 4 validators over TCP, each with the consensus, mempool, evidence
+    and PEX reactors, executors on `dev` at the calibrated dispatch: PEX
+    meshes them from node 0's address, TCP_TXS kvstore txs submitted at
+    node 3 and one equivocation at node 0 are committed, to TCP_HEIGHT at
+    least. Then again with the NATIVE_MAX seam at 0, so that every last
+    commit is checked on the ladder, to TCP_PINNED_HEIGHT; the first full
+    last commit's verifier is held against the plain versions at its bucket
+    (`batch_window_check`)."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+    from cometbft_tpu_torch.utils.metrics import consensus_metrics
+
+    txs = [b"tcp-k%03d=v%03d" % (i, i) for i in range(TCP_TXS)]
+    cm = consensus_metrics()
+    before = cm.block_interval_seconds.snapshot()
+    net = TcpNet(TCP_NODES, home / "a", exec_kws=[{"device": dev}] * TCP_NODES, seed=seed)
+    res, routes = counted_leg(counts, "network", "tcp", lambda: run_tcp_net(
+        net, txs, TCP_HEIGHT, TCP_TIMEOUT_S, evidence_from=(0, 1)))
+    ev = res.pop("duplicate_vote")
+    per_node = [len(e) for e in res["evidence"]]
+    if res["stopped"] or res["missing_txs"] or per_node != [1] * TCP_NODES or len(
+            {tuple(e) for e in res["evidence"]}) != 1 or res["evidence"][0][0][1] != ev.hash().hex():
+        raise AssertionError(f"tcp, (a): stopped {res['stopped']}, txs missing "
+                             f"{res['missing_txs']}, evidence by node {res['evidence']} "
+                             f"(want {ev.hash().hex()} once)")
+    count, total = histogram_delta(before, cm.block_interval_seconds.snapshot()).get((), (0, 0.0))
+    res.update(routes=routes, blocks_per_s=res["height"] / res["wall_s"],
+               block_interval_ms=total / count * 1e3 if count else None,
+               evidence_height=ev.height, evidence_block=res["evidence"][0][0][0])
+
+    kept = []
+    submit = E.Ed25519BatchVerifier.submit
+
+    def keep_first(bv):
+        if not kept and bv.count() >= TCP_NODES - 1:
+            copy = E.Ed25519BatchVerifier(dev)
+            copy.absorb(bv)
+            kept.append(copy)
+        return submit(bv)
+
+    pinned = TcpNet(TCP_NODES, home / "pinned", exec_kws=[{"device": dev}] * TCP_NODES,
+                    seed=seed)
+    saved, E.NATIVE_MAX = E.NATIVE_MAX, 0
+    E.Ed25519BatchVerifier.submit = keep_first
+    try:
+        res2, routes2 = counted_leg(counts, "network", "tcp_pinned", lambda: run_tcp_net(
+            pinned, [], TCP_PINNED_HEIGHT, TCP_TIMEOUT_S), need=("decompress", "ladder_sub_mul8"))
+    finally:
+        E.NATIVE_MAX = saved
+        E.Ed25519BatchVerifier.submit = submit
+    if res2["stopped"] or not kept:
+        raise AssertionError(f"tcp, pinned: stopped {res2['stopped']}, kept {len(kept)}")
+    res2.pop("duplicate_vote")
+    res2["routes"] = routes2
+    res2["window_check"] = batch_window_check(dev, card, kept[0], "tcp last commit",
+                                              TCP_CHECK_BAD_LANE, mul_rate)
+    res["pinned"] = res2
+    log(f"network, (a) {TCP_NODES} validators over TCP on {dev}: PEX full mesh from node 0's "
+        f"address in {res['mesh_s']:.3f} s; height {res['height']} in {res['wall_s']:.3f} s "
+        f"({res['blocks_per_s']:.2f} blocks/s, block interval {res['block_interval_ms']:.1f} ms), "
+        f"same block and app hashes on every node, {TCP_TXS} txs from node 3 committed and read "
+        f"back everywhere, the equivocation at height {ev.height} committed once in block "
+        f"{res['evidence_block']} on every node, no node stopped; routes {routes}; pinned to "
+        f"the ladder: height {res2['height']} in {res2['wall_s']:.3f} s, routes {routes2}, "
+        f"the kept {res2['window_check']['lanes']}-lane last commit exact at bucket "
+        f"{res2['window_check']['bucket']} [{card}]")
+    return res
+
+
+def gossip_leg(dev, card, counts: dict, stream, tap) -> dict:
+    """(b): a raw peer sends phase 8's signed stream to node B over TCP in
+    mempool frames of GOSSIP_FRAME_TXS; B admits through its
+    AdmissionPipeline at window BIG_WINDOW on `dev` and gossips what it
+    admitted to node C (the same node config). B's outcome of each tx must
+    be expected_ingest_outcome's, C's pool B's, and no tx B refused may
+    reach C."""
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.abci.types import CheckTxResult
+    from cometbft_tpu_torch.encoding import proto as pb
+    from cometbft_tpu_torch.mempool.reactor import MEMPOOL_CHANNEL, MempoolReactor
+    from cometbft_tpu_torch.p2p import ChannelDescriptor, Reactor
+
+    txs, bad = stream
+    want = expected_ingest_outcome(txs, bad, MEMPOOL_SIZE, MAX_TX_BYTES)
+    refused = {tx for tx, w in zip(txs, want) if w is not None} - {
+        tx for tx, w in zip(txs, want) if w is None}
+
+    class Raw(Reactor):
+        def channels(self):
+            return [ChannelDescriptor(MEMPOOL_CHANNEL, priority=5)]
+
+        def add_peer(self, peer):
+            pass
+
+        def remove_peer(self, peer, reason):
+            pass
+
+        def receive(self, chan_id, peer, msg):
+            pass
+
+    nodes = {}
+    for name in ("b", "c"):
+        mp = ingest_node(once_app(KVStoreApp, CheckTxResult), dev, tenant=f"gossip-{name}",
+                         window=BIG_WINDOW, delay_s=BIG_DELAY_S)
+        got, orig = [], mp.submit_tx
+
+        def submit(tx, from_peer="", _orig=orig, _got=got):
+            fut = _orig(tx, from_peer=from_peer)
+            _got.append((from_peer, tx, fut))
+            return fut
+
+        mp.submit_tx = submit
+        nodes[name] = (mp, MempoolReactor(mp), got)
+    net = SyncNet(INGEST_CHAIN, 0)
+    gossiped = []
+    try:
+        sw_raw = net.node(Raw(), "raw")
+        raw_id = sw_raw.transport.node_info.node_id
+        sw_b = net.node(nodes["b"][1], "gossip-b")
+        sw_c = net.node(nodes["c"][1], "gossip-c")
+        for sw, r in ((sw_b, nodes["b"][1]), (sw_c, nodes["c"][1])):
+            r.set_switch(sw)
+        queue = sw_b.queue_broadcast
+        sw_b.queue_broadcast = lambda chan, msg: (gossiped.append(len(msg)), queue(chan, msg))
+        host, port = sw_b.transport.node_info.listen_addr.split(":")
+        sw_c.dial_peer(host, int(port))
+        peer_b = sw_raw.dial_peer(host, int(port))
+        frames = [b"".join(pb.f_bytes(1, tx, emit_empty=True)
+                           for tx in txs[i:i + GOSSIP_FRAME_TXS])
+                  for i in range(0, len(txs), GOSSIP_FRAME_TXS)]
+        mp_b, _, got_b = nodes["b"]
+        mp_c, _, got_c = nodes["c"]
+        tap.mark()
+
+        def run():
+            t = time.perf_counter()
+            for f in frames:
+                peer_b.send(MEMPOOL_CHANNEL, f)
+            deadline = time.monotonic() + GOSSIP_TIMEOUT_S
+            while (sum(p == raw_id for p, _, _ in got_b) < len(txs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            outcomes = future_outcomes([f for p, _, f in got_b if p == raw_id])
+            admitted_s = time.perf_counter() - t
+            n_b = mp_b.size()
+            while mp_c.size() < n_b and time.monotonic() < deadline:
+                time.sleep(0.01)
+            future_outcomes([f for _, _, f in got_c])
+            return outcomes, admitted_s, time.perf_counter() - t
+
+        (got, admitted_s, wall), routes = counted_leg(counts, "network", "gossip", run,
+                                                      need=("decompress", "ladder_sub_mul8"))
+        cipher = net.cipher()
+        net.stop()
+        for mp, _, _ in nodes.values():
+            mp.close()  # the drainers' last windows' spans are written
+        check_ingest("(b) gossip at B", got, want)
+        pool_b, pool_c = mp_b.reap_max_txs(-1), mp_c.reap_max_txs(-1)
+        leaked = sum(tx in refused for _, tx, _ in got_c)
+        if pool_c != pool_b or leaked:
+            raise AssertionError(f"network, (b): C holds {len(pool_c)} txs, B {len(pool_b)}, "
+                                 f"equal {pool_c == pool_b}; {leaked} refused txs reached C")
+        spans = {k: [s for s in tap.spans("mempool.admit_window")
+                     if s["tenant"] == f"gossip-{k}"] for k in ("b", "c")}
+        admitted = sum(o is None for o in got)
+        res = {"txs": len(txs), "frames": len(frames), "admitted": admitted,
+               "wall_s": wall, "admitted_s": admitted_s, "admitted_per_s": admitted / admitted_s,
+               "routes": routes, "windows": {k: [s["n"] for s in v] for k, v in spans.items()},
+               "window_stats": window_stats(spans["b"]), "gossip_frames": len(gossiped),
+               "gossip_bytes": sum(gossiped), "pool": len(pool_c), "c_received": len(got_c),
+               **cipher}
+    finally:
+        net.stop()
+        for mp, _, _ in nodes.values():
+            mp.close()
+    log(f"network, (b) gossip: {len(txs)} signed txs in {len(frames)} frames from a raw peer "
+        f"to B over TCP, {admitted} admitted at B in {admitted_s:.3f} s "
+        f"({res['admitted_per_s']:.0f} txs/s, each outcome as expected_ingest_outcome), "
+        f"windows {res['windows']}; B gossiped {res['gossip_frames']} frames, "
+        f"{res['gossip_bytes']} B, to C, whose pool equals B's ({len(pool_c)} txs, no refused "
+        f"tx received); routes {routes}; wire {res['bytes']} B sealed [{card}]")
+    return res
+
+
+class TimedProvider:
+    """A provider whose calls are timed: all of them, or those of `names`
+    only (the others pass through). `worst` is the longest call."""
+
+    def __init__(self, inner, names=None):
+        self.inner, self.names = inner, names
+        self.seconds, self.calls, self.worst = 0.0, 0, 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+        if self.names is not None and name not in self.names:
+            return fn
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                took = time.perf_counter() - t
+                self.seconds += took
+                self.calls += 1
+                self.worst = max(self.worst, took)
+
+        return timed
+
+
+def state_source(store, genesis, top: int, interval: int):
+    """A state-sync source for `store` served to `top`: the host's replay of
+    blocks 1..top - 1 into KVStoreApp(snapshot_interval=interval), each
+    state saved in a StateStore (the validator sets of heights 1..top).
+    Returns (the app, the state store, the state reached, seconds)."""
+    from cometbft_tpu_torch.abci import KVStoreApp
+    from cometbft_tpu_torch.storage import MemKV, StateStore
+
+    t0 = time.perf_counter()
+    app, ss = KVStoreApp(snapshot_interval=interval, chunk_size=SS_CHUNK_BYTES), StateStore(MemKV())
+    state = host_state(store, genesis, top - 1, app=app, state_store=ss)
+    return app, ss, state, time.perf_counter() - t0
+
+
+def statesync_leg(dev, card, counts: dict, leg: str, chain_id: str, store, genesis, top: int,
+                  source, liar: bool = False) -> dict:
+    """One fresh node state-syncs from a source over TCP, then block-syncs to
+    its tip. The source serves `store` up to `top` (snapshots, chunks and
+    light blocks through its StateSyncReactor, blocks through a
+    BlockSyncReactor); `source` is `state_source`'s. The syncing node restores
+    through StateSyncReactor, Syncer, LightStateProvider and
+    LightClient(device=dev) over P2PLightProvider (trusting block 1's
+    hash), saves the verified commit, and block-syncs on `dev`. With
+    `liar`, a second peer advertises a snapshot at SS_LIAR_HEIGHT of
+    another state first: it must be refused with SS_LIAR_ERROR. The app
+    restored must have the snapshot's height and the header's app hash,
+    and at the tip the app's state bytes and the node's state (all but the
+    heights of the last validator and params changes, which a restore
+    sets to its own) must equal the source's."""
+    import dataclasses
+
+    from cometbft_tpu_torch.abci import AppConns, KVStoreApp
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.light import LightClient
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.statesync import LightStateProvider, SnapshotPool, Syncer
+    from cometbft_tpu_torch.statesync.reactor import P2PLightProvider, StateSyncReactor
+    from cometbft_tpu_torch.statesync.snapshots import Snapshot
+    from cometbft_tpu_torch.storage import BlockStore, MemKV
+    from cometbft_tpu_torch.types import Timestamp
+
+    app, source_ss, want, source_s = source
+    snap_h = max(s.height for s in app.list_snapshots())
+    view = StoreView(store, top)
+    out = {"source_s": source_s, "snapshot_height": snap_h, "tip": top - 1}
+
+    net = SyncNet(chain_id, 0)
+    try:
+        serving = StateSyncReactor(AppConns(app).snapshot, None, block_store=view,
+                                   state_store=source_ss)
+        sw_src = net.node(serving, f"{leg}-source")
+        sw_src.add_reactor(BlockSyncReactor(view))
+        if liar:
+            fake = KVStoreApp(chunk_size=SS_CHUNK_BYTES)
+            fake.store = {b"evil": b"data"}
+            fake.height = SS_LIAR_HEIGHT
+            fake._take_snapshot()
+            sw_liar = net.node(StateSyncReactor(AppConns(fake).snapshot, None), f"{leg}-liar")
+            sw_liar.add_reactor(BlockSyncReactor(BlockStore(MemKV())))
+        target = KVStoreApp()
+        conns = AppConns(target)
+        tstore = BlockStore(MemKV())
+        pool = SnapshotPool()
+        syncing = StateSyncReactor(conns.snapshot, pool)
+        bsync = BlockSyncReactor(tstore, executor=BlockExecutor(conns, device=dev), device=dev)
+        sw = net.node(syncing, f"{leg}-target")
+        sw.add_reactor(bsync)
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 60
+        if liar:  # the liar's offer first: it is tried first at any height
+            net.connect(sw, syncing, sw_liar)
+            while pool.best() is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+        net.connect(sw, syncing, sw_src)
+        honest = next(Snapshot(s.height, s.format, s.chunks, s.hash, s.metadata)
+                      for s in app.list_snapshots() if s.height == snap_h)
+        while not pool.peers(honest) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out["discovery_s"] = time.perf_counter() - t0
+        best = pool.best()
+        if best is None or best.height != (SS_LIAR_HEIGHT if liar else snap_h):
+            raise AssertionError(f"statesync, {leg}: the pool's best snapshot {best}")
+
+        fetcher = TimedProvider(P2PLightProvider(syncing, chain_id), names=("light_block",))
+        lc = LightClient(chain_id, fetcher, device=dev, trusting_period_s=TRUST_PERIOD_S)
+        provider = TimedProvider(LightStateProvider(
+            lc, chain_id, now=Timestamp.from_unix_ns(LIGHT_NOW_S * 10**9)))
+        syncer = Syncer(conns.snapshot, provider, syncing.fetch_chunk, pool=pool,
+                        chunk_timeout=30.0)
+
+        def restore():
+            t = time.perf_counter()
+            lc.initialize(1, store.load_block(1).header.hash())
+            provider.seconds += time.perf_counter() - t
+            return syncer.sync_any()
+
+        t0 = time.perf_counter()
+        (state, commit), routes = counted_leg(counts, "network", f"{leg}_restore", restore)
+        restore_s = time.perf_counter() - t0
+        header_hash = store.load_block(snap_h + 1).header.app_hash
+        rejected = [(s.height, (type(e).__name__, str(e))) for s, e in syncer.rejected]
+        want_rejected = [(SS_LIAR_HEIGHT, SS_LIAR_ERROR)] if liar else []
+        if (state.last_block_height, target.height) != (snap_h, snap_h) or \
+                target.app_hash != header_hash or state.app_hash != header_hash or \
+                rejected != want_rejected:
+            raise AssertionError(f"statesync, {leg}: restored height {state.last_block_height} "
+                                 f"(app {target.height}), want {snap_h}; app hash equal to "
+                                 f"header {snap_h + 1}'s {target.app_hash == header_hash}; "
+                                 f"rejected {rejected}, want {want_rejected}")
+        out.update(restore_s=restore_s, restore_routes=routes, rejected=rejected,
+                   light_s=provider.seconds, light_blocks=len(lc.store.heights()),
+                   light_heights=lc.store.heights(), chunk_s=restore_s - provider.seconds,
+                   fetch_s=fetcher.seconds, fetches=fetcher.calls, fetch_worst_s=fetcher.worst,
+                   verify_s=provider.seconds - fetcher.seconds,
+                   chunks=next(s.chunks for s in app.list_snapshots() if s.height == snap_h))
+        out["light_ms_a_block"] = provider.seconds * 1e3 / max(1, out["light_blocks"])
+        out["fetch_ms_a_block"] = fetcher.seconds * 1e3 / max(1, fetcher.calls)
+
+        tstore.save_seen_commit(state.last_block_height, commit)
+        bsync.state = state
+        t0 = time.perf_counter()
+        final, routes = counted_leg(counts, "network", f"{leg}_blocksync",
+                                    lambda: bsync.sync(timeout_s=SS_TIMEOUT_S))
+        out.update(blocksync_s=time.perf_counter() - t0, blocksync_routes=routes,
+                   blocks=final.last_block_height - snap_h)
+        same = dataclasses.replace(
+            final, last_height_validators_changed=want.last_height_validators_changed,
+            last_height_params_changed=want.last_height_params_changed).encode() == want.encode()
+        if final.last_block_height != top - 1 or not same or \
+                target._serialize_state() != app._serialize_state():
+            raise AssertionError(f"statesync, {leg}: tip {final.last_block_height}, want "
+                                 f"{top - 1}; state equal to the source's {same}; app state "
+                                 f"bytes equal {target._serialize_state() == app._serialize_state()}")
+        out["changed_heights"] = (final.last_height_validators_changed,
+                                  final.last_height_params_changed)
+        out.update(net.cipher())
+    finally:
+        net.stop()
+    both = (counts[f"{leg}_restore"], counts[f"{leg}_blocksync"])
+    out["launches"] = {k: sum(c[k] for c in both) for k in both[0] if any(c[k] for c in both)}
+    return out
+
+
+def statesync_phase(dev, card, counts: dict, chains, mul_rate: float) -> dict:
+    """(c): (c1) phase 7's chain (1,000 validators) served to SS_C1_TOP with
+    the NATIVE_MAX seam at 0 and the delta seam off, so that every check
+    takes the ladder on the card; the first light check's verifier is held
+    against the plain versions at its bucket, with lane SS_C1_CHECK_BAD_LANE
+    the tampered one (`batch_window_check`); (c2) phase 10 (b2)'s
+    10,000-validator chain at the calibrated dispatch; (c3) (c1) with a
+    liar whose snapshot the verified header refutes, at the calibrated
+    dispatch."""
+    from cometbft_tpu_torch.crypto import ed25519 as E
+
+    (store7, genesis7), (store10, genesis10) = chains
+    out = {}
+    source7 = state_source(store7, genesis7, SS_C1_TOP, SS_C1_INTERVAL)
+    kept, submit = [], E.Ed25519BatchVerifier.submit
+
+    def keep_first(bv):
+        if not kept and E._bucket(bv.count()) == SS_C1_CHECK_BUCKET:
+            copy = E.Ed25519BatchVerifier(dev)
+            copy.absorb(bv)
+            kept.append(copy)
+        return submit(bv)
+
+    saved = E.NATIVE_MAX, E._delta_beats_prehashed
+    E.NATIVE_MAX, E._delta_beats_prehashed = 0, lambda n, b, device: False
+    try:
+        E.Ed25519BatchVerifier.submit = keep_first
+        try:
+            out["c1"] = statesync_leg(dev, card, counts, "c1", REPLAY_CHAIN, store7, genesis7,
+                                      SS_C1_TOP, source7)
+        finally:
+            E.Ed25519BatchVerifier.submit = submit
+        routes = {k for r in ("restore_routes", "blocksync_routes")
+                  for k in out["c1"][r]} - {"batch"}
+        if routes != {"ladder"} or not kept:
+            raise AssertionError(f"statesync, (c1): routes {routes}, want the ladder alone; "
+                                 f"a light check at bucket {SS_C1_CHECK_BUCKET} kept: {bool(kept)}")
+        out["c1"]["window_check"] = batch_window_check(
+            dev, card, kept[0], "state-sync light check (c1)", SS_C1_CHECK_BAD_LANE, mul_rate)
+    finally:
+        E.NATIVE_MAX, E._delta_beats_prehashed = saved
+    out["c2"] = statesync_leg(dev, card, counts, "c2", SYNC_CHAIN, store10, genesis10,
+                              store10.height(), state_source(store10, genesis10,
+                                                             store10.height(), SS_C2_INTERVAL))
+    out["c3"] = statesync_leg(dev, card, counts, "c3", REPLAY_CHAIN, store7, genesis7,
+                              SS_C1_TOP, source7, liar=True)
+    for leg in ("c1", "c2", "c3"):
+        r = out[leg]
+        if leg != "c3" and not r["launches"].get("ladder_sub_mul8"):
+            raise AssertionError(f"statesync, ({leg}): no light check ran on the card: "
+                                 f"launches {r['launches']}")
+        log(f"network, ({leg}) state sync over TCP on {dev}: snapshot {r['snapshot_height']} "
+            f"({r['chunks']} chunks) restored, then block sync of {r['blocks']} blocks to "
+            f"{r['tip']}, the app state bytes and the state the source's; discovery "
+            f"{r['discovery_s']:.3f} s, light {r['light_s']:.3f} s ({r['light_blocks']} light "
+            f"blocks, {r['light_ms_a_block']:.1f} ms each, heights {r['light_heights']}: "
+            f"{r['fetches']} fetches {r['fetch_s']:.3f} s, {r['fetch_ms_a_block']:.1f} ms each, "
+            f"worst {r['fetch_worst_s']:.3f} s; verification {r['verify_s']:.3f} s), "
+            f"chunks fetched and applied {r['chunk_s']:.3f} s, block sync "
+            f"{r['blocksync_s']:.3f} s; rejected {r['rejected']}; routes {r['restore_routes']} "
+            f"then {r['blocksync_routes']}; launches {r['launches']}; the source's replay "
+            f"{r['source_s']:.2f} s [{card}]")
+    return out
+
+
+def network_phase(dev, card, seed: int, kern: dict, chains, stream, mul_rate: float) -> dict:
+    """Phase 11: the network reactors and state sync on the card: (a) 4
+    validators over TCP with PEX, (b) tx gossip at the ingest cell's width,
+    (c) state sync at 1,000 and 10,000 validators and a liar; each leg with
+    the launch counts set to 0 just before it and read right after. The
+    nodes' log records are counted, not printed."""
+    import tempfile
+
+    from cometbft_tpu_torch.utils import log as L
+    from cometbft_tpu_torch.utils import trace
+
+    out, counts, records = {"card": card}, {}, []
+    sink = L._config.sink
+    L.set_sink(lambda level, msg, fields: records.append(msg))
+    tap = TraceTap(OUT_DIR / "trace_network.jsonl")
+    if tap.path.exists():
+        tap.path.unlink()
+    trace.configure(str(tap.path))
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["tcp"] = tcp_leg(dev, card, counts, Path(tmp), seed, mul_rate)
+        out["gossip"] = gossip_leg(dev, card, counts, stream, tap)
+        out["statesync"] = statesync_phase(dev, card, counts, chains, mul_rate)
+    finally:
+        trace.disable()
+        L.set_sink(sink)
+    out["log_records"] = len(records)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"network: phase 11 took {out['seconds']:.1f} s, {len(records)} log records [{card}]")
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["network"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["network"]
     return out
 
 
@@ -4650,6 +5413,7 @@ def main(argv=None) -> int:
 
     # ---- phase 8: ingest, blocks with the mempool and evidence, the light client
     ingest = ingest_phase(dev, card, args.seed, kern, chain, mul_rate)
+    stream = ingest.pop("stream")
 
     # ---- phase 9: in-process consensus
     consensus = consensus_phase(dev, card, args.seed, kern, mul_rate)
@@ -4661,16 +5425,20 @@ def main(argv=None) -> int:
     blocksync["phase_s"] = time.perf_counter() - t0
     log(f"phase 10 took {blocksync['phase_s']:.1f} s (the mesh {mesh['seconds']:.1f} s) [{card}]")
 
+    # ---- phase 11: the network reactors and state sync
+    network = network_phase(dev, card, args.seed, kern, ((chain[0], chain[2]),
+                                                         blocksync.pop("chain")), stream, mul_rate)
+
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
                    rlc_stage=rlc_stage, rlc_sigs_per_s=rlc_sigs_per_s,
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
                    rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
                    consumers=consumers, replay=replay, ingest=ingest, consensus=consensus,
-                   mesh=mesh, blocksync=blocksync)
+                   mesh=mesh, blocksync=blocksync, network=network)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phases 11 and 12: the kernel line, the card, the contract line
+    # ---- phases 12 and 13: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

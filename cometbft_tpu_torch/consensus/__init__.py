@@ -1,6 +1,6 @@
-"""In-process consensus (twin of `cometbft_tpu/consensus/`): the state
-machine, its vote sets, WAL and ticker, and the loopback network. The p2p
-reactor comes with the node."""
+"""Consensus (twin of `cometbft_tpu/consensus/`): the state machine, its
+vote sets, WAL and ticker, the loopback network, and the p2p reactor in
+`reactor.py`."""
 
 from .height_vote_set import HeightVoteSet
 from .ticker import ManualTicker, TimeoutInfo, TimeoutTicker

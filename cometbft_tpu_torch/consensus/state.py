@@ -187,6 +187,10 @@ class ConsensusState:
         self._log = logger("consensus").with_fields(node=self.name)
         self._last_commit_mono: float | None = None
         self.inbox: queue.Queue = queue.Queue()
+        # reactor hooks: step-change broadcast + HasVote announcements
+        # (reference broadcastNewRoundStepMessage / broadcastHasVoteMessage)
+        self.on_new_step = None
+        self.on_has_vote = None
         self.ticker = (ticker_factory or TimeoutTicker)(self._on_ticker_timeout)
         self.evidence: list[ErrVoteConflictingVotes] = []
         self.decided: dict[int, BlockID] = {}  # height -> committed block id
@@ -332,8 +336,18 @@ class ConsensusState:
                 raise
 
     def _process(self, item) -> None:
-        with self.rs_mutex:
-            self._process_inner(item)
+        before = (self.height, self.round, int(self.step))
+        try:
+            with self.rs_mutex:
+                self._process_inner(item)
+        finally:
+            if self.on_new_step is not None and (
+                (self.height, self.round, int(self.step)) != before
+            ):
+                try:
+                    self.on_new_step()  # reactor broadcasts NewRoundStep
+                except Exception:  # noqa: BLE001
+                    pass
 
     def _process_inner(self, item) -> None:
         if isinstance(item, TimeoutInfo):
@@ -476,6 +490,12 @@ class ConsensusState:
             return  # bad peer vote: drop (peer punishment at p2p layer)
         if not added:
             return
+
+        if self.on_has_vote is not None:
+            try:
+                self.on_has_vote(v)  # reactor broadcasts HasVote
+            except Exception:  # noqa: BLE001 — gossip must not stall consensus
+                pass
 
         if v.type == SignedMsgType.PREVOTE:
             self._after_prevote(v)

@@ -1,4 +1,5 @@
-"""The evidence pool (twin of `cometbft_tpu/evidence/`)."""
+"""The evidence pool and its gossip reactor in `reactor.py` (twin of
+`cometbft_tpu/evidence/`)."""
 
 from .pool import EvidencePool
 

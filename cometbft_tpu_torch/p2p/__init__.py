@@ -1,6 +1,7 @@
 """Peer-to-peer: node keys, the secret connection, MConnection, the TCP
-transport and the switch (twin of `cometbft_tpu/p2p/`; the address book,
-PEX and the fuzzing connection are not ported yet)."""
+transport, the switch, the address book and PEX (twin of
+`cometbft_tpu/p2p/`; the fuzzing connection, which only the end-to-end
+runner uses, is not ported yet)."""
 
 from .key import NodeKey
 from .secret_connection import SecretConnection

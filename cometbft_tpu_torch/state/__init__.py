@@ -1,7 +1,7 @@
 """Execution state and the block executor (ABCI driving loop).
 
-Twin of `cometbft_tpu/state/` for block execution: `types.py` and
-`execution.py`. The handshake, pruner and rollback are not here yet.
+Twin of `cometbft_tpu/state/`: `types.py`, `execution.py`, `pruner.py`
+and `rollback.py`. The handshake comes with the node.
 """
 
 from .types import State, ConsensusParams  # noqa: F401

@@ -20,9 +20,10 @@ backends' metrics line up:
   (all but the reference's `cert_gossip_total`, which only the
   certificate path feeds);
 - `P2PMetrics` (`p2p/conn.py`, `p2p/switch.py`; `peer_height` and
-  `peer_round` wait for the consensus reactor) and `BlockSyncMetrics`
-  (`blocksync/pool.py`, `blocksync/reactor.py`; `cert_verify_seconds`
-  waits for replay's certificate branch);
+  `peer_round` from `consensus/reactor.py`'s peer state) and
+  `BlockSyncMetrics` (`blocksync/pool.py`, `blocksync/reactor.py`;
+  `cert_verify_seconds` waits for replay's certificate branch);
+- `StateSyncMetrics` (`statesync/syncer.py`);
 - the mesh's `mesh_devices` and `mesh_batches_total` in `CryptoMetrics`
   (`parallel/mesh.py`).
 
@@ -322,7 +323,7 @@ class P2PMetrics:
         self.message_send_bytes_total = reg.counter(
             "p2p", "message_send_bytes_total", "Bytes sent",
             labels=("chan",))
-        # fed by the consensus reactor's peer state (not ported yet)
+        # fed by the consensus reactor's peer state
         self.peer_height = reg.gauge(
             "p2p", "peer_height", "Last known consensus height per peer",
             labels=("peer",))
@@ -374,6 +375,19 @@ class BlockSyncMetrics:
             "during replay, per commit", buckets=TX_STAGE_BUCKETS)
 
 
+class StateSyncMetrics:
+    def __init__(self, reg: Registry | None = None):
+        reg = reg or DEFAULT_REGISTRY
+        self.syncing = reg.gauge("statesync", "syncing",
+                                 "1 while state sync is running")
+        self.snapshots_discovered_total = reg.counter(
+            "statesync", "snapshots_discovered_total",
+            "Snapshots offered by peers")
+        self.chunks_applied_total = reg.counter(
+            "statesync", "chunks_applied_total",
+            "Snapshot chunks accepted by the app")
+
+
 _BUNDLES: dict[str, object] = {}
 _BUNDLES_LOCK = threading.Lock()
 
@@ -416,6 +430,10 @@ def p2p_metrics() -> P2PMetrics:
 
 def blocksync_metrics() -> BlockSyncMetrics:
     return _bundle("blocksync", BlockSyncMetrics)
+
+
+def statesync_metrics() -> StateSyncMetrics:
+    return _bundle("statesync", StateSyncMetrics)
 
 
 def reset_bundles() -> None:

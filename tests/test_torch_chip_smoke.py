@@ -655,3 +655,133 @@ def test_mesh_shard_check_takes_the_last_shard_and_catches_a_wrong_ladder(monkey
     monkeypatch.setattr(C, "ladder_sub_mul8", off_by_one)
     with pytest.raises(AssertionError, match="ladder_sub_mul8 at B=3 1 lanes"):
         chip_smoke.mesh_shard_check(eng, *arrays)
+
+
+# ---- phase 11's helpers (the network reactors and state sync)
+
+def _count_plain_kernels(monkeypatch):
+    """The plain decompress and ladder count as launches; the card's sync is
+    a no-op."""
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import kernels as K
+
+    for fn, name in (("decompress_plain", "decompress"),
+                     ("ladder_sub_mul8_plain", "ladder_sub_mul8")):
+        orig = getattr(C, fn)
+        monkeypatch.setattr(C, fn, lambda *a, _o=orig, _n=name: (
+            K.launches.__setitem__(_n, K.launches[_n] + 1), _o(*a))[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+
+@pytest.fixture
+def quiet_nodes():
+    from cometbft_tpu_torch.utils import log as L
+
+    sink = L._config.sink
+    L.set_sink(lambda level, msg, fields: None)
+    yield
+    L.set_sink(sink)
+
+
+def test_tcp_leg_rehearsal(monkeypatch, tmp_path, quiet_nodes):
+    """Phase 11 (a) on the CPU at a small size, the timeouts ten times
+    tests/test_node.py's: 2 validators over TCP with PEX, txs at the last
+    node and the equivocation committed once on every node; the pinned run
+    keeps a full last commit for the window check (stubbed here: phase 9's
+    rehearsal holds it)."""
+    _count_plain_kernels(monkeypatch)
+    for name, value in (("TCP_NODES", 2), ("TCP_HEIGHT", 3), ("TCP_TXS", 8),
+                        ("TCP_PINNED_HEIGHT", 2),
+                        ("TCP_TIMEOUT_S", 90.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    # the plain ladder checks a last commit in ~1 s on a CPU: rounds long enough for it
+    monkeypatch.setattr(chip_smoke, "TCP_TIMEOUTS",
+                        {k: 10 * v for k, v in chip_smoke.TCP_TIMEOUTS.items()})
+    checked = []
+    monkeypatch.setattr(chip_smoke, "batch_window_check", lambda dev, card, bv, what, lane, rate: (
+        checked.append((bv.count(), lane)), {"lanes": bv.count(), "bucket": E._bucket(bv.count())})[1])
+    counts = {}
+    out = chip_smoke.tcp_leg(torch.device("cpu"), "cpu", counts, tmp_path, 0, 1.0)
+    assert out["height"] >= 3 and out["mesh_s"] > 0 and out["evidence_block"] >= 2
+    assert len(set(map(tuple, out["evidence"]))) == 1 and not out["stopped"]
+    assert checked and checked[0][0] >= 1 and checked[0][1] == chip_smoke.TCP_CHECK_BAD_LANE
+    assert counts["tcp_pinned"]["ladder_sub_mul8"] > 0 and out["pinned"]["routes"]["ladder"] > 0
+
+
+def test_gossip_leg_rehearsal(monkeypatch, tmp_path, quiet_nodes):
+    """Phase 11 (b) on the CPU at 24-lane windows: a raw peer's frames to B
+    over TCP, every outcome expected_ingest_outcome's, C's pool B's, no
+    refused tx at C."""
+    from cometbft_tpu_torch.utils import factories as fx
+    from cometbft_tpu_torch.utils import trace
+
+    _count_plain_kernels(monkeypatch)
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+    for name, value in (("MAX_TX_BYTES", 1_000), ("MEMPOOL_SIZE", 60), ("BIG_WINDOW", 24),
+                        ("BIG_DELAY_S", 0.5), ("GOSSIP_FRAME_TXS", 8)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    plants = {"bad_sig": 7, "app_reject": 15, "malformed": 20, "duplicate": (30, 10),
+              "oversize": 35, "conflict": (1, 40)}
+    cpu = torch.device("cpu")
+    txs, bad = chip_smoke.ingest_stream(fx.make_signers(8, seed=1, device=cpu), 0, 48, plants,
+                                        3, cpu)
+    tap = chip_smoke.TraceTap(tmp_path / "trace.jsonl")
+    trace.configure(str(tap.path))
+    try:
+        out = chip_smoke.gossip_leg(cpu, "cpu", {}, (txs, bad), tap)
+    finally:
+        trace.disable()
+    want = chip_smoke.expected_ingest_outcome(txs, bad, 60, 1_000)
+    assert out["admitted"] == out["pool"] == sum(w is None for w in want) == out["c_received"]
+    # B's windows also hold what C gossips back (refused: already seen)
+    assert sum(out["windows"]["b"]) >= len(txs) and sum(out["windows"]["c"]) >= out["pool"]
+    assert out["gossip_frames"] >= 1 and out["routes"]["ladder"] > 0
+
+
+@pytest.fixture(scope="module")
+def ss_chains():
+    """Two reference chains crossed to the port: 10 blocks (for (c1), (c3))
+    and 6 blocks (for (c2)), 4 validators each."""
+    from cometbft_tpu.utils.factories import make_chain
+    from cometbft_tpu_torch.state.types import State
+    from cometbft_tpu_torch.storage import BlockStore, MemKV
+
+    out = []
+    for n, chain_id in ((10, chip_smoke.REPLAY_CHAIN), (6, chip_smoke.SYNC_CHAIN)):
+        store, _, genesis, _ = make_chain(n, n_validators=4, chain_id=chain_id, backend="cpu")
+        kv = MemKV()
+        kv.write_batch(sorted(store._db.iterate_prefix(b"")))
+        out.append((BlockStore(kv), State.decode(genesis.encode())))
+    return out
+
+
+def test_statesync_phase_rehearsal(ss_chains, monkeypatch, quiet_nodes):
+    """Phase 11 (c) on the CPU (the plain ladder for every check): (c1) and
+    (c2) restore and block-sync to the source's state, (c3) refuses the
+    liar (at the honest height here, its offer first) with the reference's
+    error first; (c1) takes the ladder alone and keeps its first light check
+    for the window check (stubbed here: phase 9's rehearsal holds it), and
+    the light time splits into fetch and verification."""
+    _count_plain_kernels(monkeypatch)
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+    for name, value in (("SS_C1_TOP", 10), ("SS_C1_INTERVAL", 4), ("SS_C2_INTERVAL", 2),
+                        ("SS_LIAR_HEIGHT", 8), ("SS_TIMEOUT_S", 60.0),
+                        ("SS_C1_CHECK_BUCKET", 64), ("SS_C1_CHECK_BAD_LANE", 1)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    checked = []
+    monkeypatch.setattr(chip_smoke, "batch_window_check", lambda dev, card, bv, what, lane, rate: (
+        checked.append((bv.count(), lane)), {"lanes": bv.count(), "bucket": E._bucket(bv.count())})[1])
+    counts = {}
+    out = chip_smoke.statesync_phase(torch.device("cpu"), "cpu", counts, ss_chains, 1.0)
+    assert checked == [(out["c1"]["window_check"]["lanes"], 1)] and checked[0][0] >= 2
+    assert set(out["c1"]["restore_routes"]) == {"ladder", "batch"}
+    for k in ("c1", "c2", "c3"):
+        assert out[k]["fetches"] >= out[k]["light_blocks"] and 0 < out[k]["fetch_s"]
+        assert out[k]["fetch_worst_s"] <= out[k]["fetch_s"] < out[k]["light_s"]
+        assert out[k]["verify_s"] == pytest.approx(out[k]["light_s"] - out[k]["fetch_s"])
+    assert [out[k]["snapshot_height"] for k in ("c1", "c2", "c3")] == [8, 4, 8]
+    assert [out[k]["blocks"] for k in ("c1", "c2", "c3")] == [1, 1, 1]
+    assert out["c3"]["rejected"] == [(8, chip_smoke.SS_LIAR_ERROR)]
+    assert out["c1"]["rejected"] == out["c2"]["rejected"] == []
+    assert out["c2"]["light_heights"] == [1, 4, 5, 6] and out["c1"]["light_ms_a_block"] > 0
+    assert all(out[k]["launches"]["ladder_sub_mul8"] for k in ("c1", "c2", "c3"))

@@ -74,7 +74,19 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                        "cometbft_tpu_torch.p2p.key", "cometbft_tpu_torch.p2p.secret_connection",
                        "cometbft_tpu_torch.p2p.conn", "cometbft_tpu_torch.p2p.transport",
                        "cometbft_tpu_torch.p2p.switch", "cometbft_tpu_torch.blocksync.pool",
-                       "cometbft_tpu_torch.blocksync.reactor"]) - set(names)
+                       "cometbft_tpu_torch.blocksync.reactor",
+                       "cometbft_tpu_torch.p2p.addrbook", "cometbft_tpu_torch.p2p.pex",
+                       "cometbft_tpu_torch.mempool.reactor",
+                       "cometbft_tpu_torch.evidence.reactor",
+                       "cometbft_tpu_torch.consensus.reactor", "cometbft_tpu_torch.statesync",
+                       "cometbft_tpu_torch.statesync.messages",
+                       "cometbft_tpu_torch.statesync.snapshots",
+                       "cometbft_tpu_torch.statesync.chunks",
+                       "cometbft_tpu_torch.statesync.provider",
+                       "cometbft_tpu_torch.statesync.syncer",
+                       "cometbft_tpu_torch.statesync.reactor",
+                       "cometbft_tpu_torch.state.pruner",
+                       "cometbft_tpu_torch.state.rollback"]) - set(names)
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 50 else 0)
     """)
