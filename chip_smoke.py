@@ -240,7 +240,7 @@ and never prints its last line):
      Hub set), one thread, no timers (ManualTickers, `now_ns` from the
      node's height and round, no speculation, a fixed delivery order,
      timeouts fired only when every inbox is empty), 256 kvstore txs of
-     100 B a height, heights 1-4, with `E.NATIVE_MAX` at 0 so that every
+     100 B a height, heights 1-3, with `E.NATIVE_MAX` at 0 so that every
      last-commit check runs on the device; at (3, 0) the proposer's block
      reaches the others with its last commit's signature 77 flipped (the
      proposal re-signed): every non-proposer must prevote nil, height 3
@@ -346,13 +346,37 @@ and never prints its last line):
      (discovery, light checks and ms a light block, of which the fetch,
      chunks, block sync),
      routes and launches; `results.json` key `network`;
-12. one JSON line `{"kernels": [...]}` with each kernel's launches,
+12. the node through the entry points an operator uses (`cli`, `Node`,
+   the RPC), each leg with the launch counts set to 0 just before it and
+   read right after:
+   - (a) one node from `cli init`'s defaults (cuda, sqlite, admission
+     window 256, the shared scheduler) in this process: NODE_TXS kvstore
+     txs by HTTP `broadcast_tx_commit`, each read back by `abci_query` and
+     by `tx` with its proof against the block's data hash, one websocket
+     NewBlock event a height; then a new `Node` on the same home (the
+     handshake replays every stored block) commits NODE_RESTART_HEIGHTS
+     more; logged: blocks/s, the commit latency's p50 and p99;
+   - (b) `cli testnet --v 4`, each node its own `python3 -m
+     cometbft_tpu_torch.cli start` process on the card, to height
+     NODE_PROC_HEIGHT: every node's `/block` hash and app hash equal at
+     every height and its `/status` app hash equal, NODE_PROC_TXS txs by
+     `broadcast_tx_sync` at node 3 each found by `tx` on node 0, every
+     process exiting 0 on SIGTERM; logged: the first block's time, the
+     block interval;
+   - (c) a source `cli start` process holding the first NODE_SOURCE_TOP
+     heights of phase 10 (b2)'s 10,000-validator chain; a fresh `Node`
+     here catches up through `Node.start()`'s block-sync hand-off: its
+     state the host's, its `/commit` of the tip with every signature,
+     `decompress` and the ladder or `accum_weight` launched; logged:
+     boot and catch-up seconds, blocks/s, routes and launches;
+   `results.json` key `node`;
+13. one JSON line `{"kernels": [...]}` with each kernel's launches,
    mismatches, time, plain time and bound (field products: multiplies at
    100 and squarings at 55 wide integer multiplies; `sha512_blocks`:
    SHA_INT_OPS_PER_BLOCK 32-bit integer instructions a block this run's
    lanes hash; `reduce512`: REDUCE_WIDE_MULS wide multiplies a lane;
    `sha512_reduce`: both, at the same rate);
-13. the card's name and power limit, then the last line
+14. the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
 Longer output (the full ptxas report and every number) goes to
@@ -2928,7 +2952,7 @@ NET_HEIGHT = 6
 NET_TIMEOUT_S = 120.0
 LOCKSTEP_CHAIN = "lockstep-chain"
 LOCKSTEP_VALIDATORS = 150  # BASELINE.json's Cosmos Hub set
-LOCKSTEP_HEIGHTS = 4
+LOCKSTEP_HEIGHTS = 3  # heights 1-3: the tampered proposal at 3 is the last
 LOCKSTEP_TXS = 256  # kvstore txs a height, ~100 B each, the same on every node
 LOCKSTEP_TX_BYTES = 100
 LOCKSTEP_POWER = 10
@@ -4785,6 +4809,556 @@ def network_phase(dev, card, seed: int, kern: dict, chains, stream, mul_rate: fl
     return out
 
 
+# ---- phase 12: the node
+
+NODE_CHAIN = "node-chain"
+NODE_TXS = 64  # (a): kvstore txs through broadcast_tx_commit
+NODE_RESTART_HEIGHTS = 3  # (a): heights committed after the restart
+NODE_PROCS = 4  # (b)
+NODE_PROC_HEIGHT = 6
+NODE_PROC_TXS = 256  # (b): broadcast_tx_sync at the last node
+NODE_SOURCE_TOP = 5  # (c): the heights of phase 10 (b2)'s chain the source holds
+NODE_TIMEOUT_S = 120.0  # each wait of the phase
+
+
+def free_port_base(n: int) -> int:
+    """A port p with p .. p + n - 1 free on 127.0.0.1."""
+    import random
+    import socket
+
+    rnd = random.Random()
+    for _ in range(200):
+        base, socks = rnd.randrange(20_000, 60_000 - n), []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError(f"node: no {n} free consecutive ports on 127.0.0.1")
+
+
+def rpc(addr, method: str, timeout: float = 60.0, **params):
+    """One JSON-RPC call to the node at `addr` (host, port)."""
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+
+    return HTTPClient(f"http://{addr[0]}:{addr[1]}", timeout=timeout).call(method, params)
+
+
+def wait_for(what: str, pred, timeout_s: float, poll_s: float = 0.1, procs=()):
+    """Poll `pred` until it returns a true value (an exception counts as
+    false); fail at the deadline, or at once if one of `procs` exited."""
+    deadline = time.monotonic() + timeout_s
+    last = None
+    while time.monotonic() < deadline:
+        for p in procs:
+            if p.poll() is not None:
+                raise AssertionError(f"node: a node process exited {p.returncode} while "
+                                     f"waiting for {what}")
+        try:
+            got = pred()
+            if got:
+                return got
+        except Exception as e:  # noqa: BLE001 - not up yet
+            last = e
+        time.sleep(poll_s)
+    raise AssertionError(f"node: timed out after {timeout_s:.0f} s waiting for {what}"
+                         + (f" (last error: {last})" if last else ""))
+
+
+class WsSubscriber:
+    """A websocket client of a node's RPC (RFC 6455, masked text frames):
+    one `subscribe`, acknowledged before the constructor returns; a reader
+    thread keeps every event the node pushes."""
+
+    def __init__(self, addr, query: str):
+        import base64
+        import socket
+        import threading
+
+        self.sock = socket.create_connection(addr, timeout=30)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /websocket HTTP/1.1\r\nHost: {addr[0]}:{addr[1]}\r\n"
+                           "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n"
+                           ).encode())
+        head = b""
+        while not head.endswith(b"\r\n\r\n"):
+            head += self._recv_exact(1)
+        if b" 101 " not in head.split(b"\r\n")[0]:
+            raise AssertionError(f"websocket: no upgrade: {head[:80]!r}")
+        self.sock.settimeout(None)
+        self.msgs = []
+        self._acked = threading.Event()
+        self._send({"jsonrpc": "2.0", "id": 1, "method": "subscribe",
+                    "params": {"query": query}})
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+        if not self._acked.wait(30):
+            raise AssertionError(f"websocket: subscribe {query!r} not acknowledged")
+
+    def _recv_exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("websocket closed")
+            buf += chunk
+        return buf
+
+    def _send(self, obj) -> None:
+        payload = json.dumps(obj).encode()
+        mask, n = os.urandom(4), len(payload)
+        head = bytes([0x81]) + (bytes([0x80 | n]) if n < 126
+                                else bytes([0x80 | 126]) + n.to_bytes(2, "big"))
+        self.sock.sendall(head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def _read(self) -> None:
+        try:
+            while True:
+                b0, b1 = self._recv_exact(2)
+                n = b1 & 0x7F
+                if n == 126:
+                    n = int.from_bytes(self._recv_exact(2), "big")
+                elif n == 127:
+                    n = int.from_bytes(self._recv_exact(8), "big")
+                data = self._recv_exact(n)
+                if b0 & 0x0F == 0x1:
+                    msg = json.loads(data)
+                    if msg.get("id") == 1:
+                        self._acked.set()
+                    else:
+                        self.msgs.append(msg)
+        except (OSError, ValueError):
+            return
+
+    def heights(self) -> list:
+        """The block heights of the NewBlock events received, in order."""
+        return [int(m["result"]["data"]["block_height"]) for m in list(self.msgs)
+                if "result" in m]
+
+    def close(self) -> None:
+        import socket
+
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.sock.close()
+
+
+def node_config(home: Path, device, p2p: str, rpc_laddr: str, peers: str = "",
+                rate: int | None = None):
+    """The home's config.toml as `init` or `testnet` wrote it, with the
+    listen addresses, the peers, (off the card) the backend and, given
+    `rate`, the p2p send and receive rates set, saved back; returns it with
+    its home set."""
+    from cometbft_tpu_torch.config import Config
+
+    path = home / "config" / "config.toml"
+    cfg = Config.load(str(path))
+    cfg.base.crypto_backend = torch.device(device).type
+    cfg.p2p.laddr, cfg.rpc.laddr, cfg.p2p.persistent_peers = p2p, rpc_laddr, peers
+    if rate is not None:
+        cfg.p2p.send_rate = cfg.p2p.recv_rate = rate
+    cfg.save(str(path))
+    cfg.base.home = str(home)
+    return cfg
+
+
+def start_process(home: Path, log_path: Path):
+    """`python3 -m cometbft_tpu_torch.cli --home HOME start`, from this
+    checkout, its output to `log_path`."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    with open(log_path, "wb") as fh:
+        return subprocess.Popen(
+            [sys.executable, "-m", "cometbft_tpu_torch.cli", "--home", str(home), "start"],
+            cwd=str(ROOT), env=env, stdout=fh, stderr=subprocess.STDOUT)
+
+
+def stop_processes(procs, logs) -> list:
+    """SIGTERM each process and wait for it; the exit codes (None for one
+    that had to be killed). A process that did not exit with 0 is an error,
+    its log's tail in the message."""
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=60))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rcs.append(None)
+    for rc, path in zip(rcs, logs):
+        if rc != 0:
+            tail = Path(path).read_text(errors="replace")[-3000:]
+            raise AssertionError(f"node: the process of {path} exited {rc}:\n{tail}")
+    return rcs
+
+
+def node_single_leg(dev, card, home: Path) -> dict:
+    """Phase 12 (a): one node from `cli init` with the config's defaults, in
+    this process with its RPC listener; NODE_TXS txs through HTTP
+    broadcast_tx_commit, each read back by abci_query and by `tx` with its
+    proof checked against the block's data hash; a websocket NewBlock
+    subscription gets one event a height; then a new Node on the same home
+    (the handshake and the WAL) commits NODE_RESTART_HEIGHTS more."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cometbft_tpu_torch import cli
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.crypto.keys import tmhash
+    from cometbft_tpu_torch.node import Node
+
+    if cli.main(["--home", str(home), "init", "--chain-id", NODE_CHAIN]) != 0:
+        raise AssertionError("node, (a): cli init failed")
+    cfg = node_config(home, dev, "tcp://127.0.0.1:0", "tcp://127.0.0.1:0")
+    defaults = (cfg.base.db_backend, cfg.mempool.admission_window, cfg.sched.enabled)
+    if defaults != ("sqlite", 256, True):
+        raise AssertionError(f"node, (a): init's config is not the defaults: {defaults}")
+    out = {}
+    t_start = time.perf_counter()
+    node = Node(cfg, app=KVStoreApp())
+    node.start()
+    try:
+        addr = node.rpc_addr
+        ws = WsSubscriber(addr, "tm.event = 'NewBlock'")
+        h0 = node.block_store.height()
+        txs = [f"node-a-{i:03d}=value-{i}".encode() for i in range(NODE_TXS)]
+
+        def commit(tx):
+            t0 = time.perf_counter()
+            r = rpc(addr, "broadcast_tx_commit", tx=tx.hex())
+            return r, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as ex:
+            res = list(ex.map(commit, txs))
+        out["txs_s"] = time.perf_counter() - t0
+        bad = [r for r, _ in res if r.get("check_tx", {}).get("code")
+               or r.get("tx_result", {}).get("code", 1)]
+        if bad:
+            raise AssertionError(f"node, (a): {len(bad)} txs not committed: {bad[:3]}")
+        lat = np.array([dt for _, dt in res]) * 1e3
+        out["commit_ms_p50"] = float(np.percentile(lat, 50))
+        out["commit_ms_p99"] = float(np.percentile(lat, 99))
+        for tx, (r, _) in zip(txs, res):
+            key, value = tx.split(b"=")
+            q = rpc(addr, "abci_query", data=key.hex())["response"]
+            # the indexer takes the tx from the event bus on its own thread
+            got = wait_for(f"tx {tx!r} in the index",
+                           lambda: rpc(addr, "tx", hash=r["hash"], prove=True), NODE_TIMEOUT_S,
+                           poll_s=0.02)
+            blk = node.block_store.load_block(int(got["height"]))
+            pr = got["proof"]["proof"]
+            proof = merkle.Proof(int(pr["total"]), int(pr["index"]),
+                                 base64.b64decode(pr["leaf_hash"]),
+                                 [base64.b64decode(a) for a in pr["aunts"]])
+            if (bytes.fromhex(q["value"]) != value or bytes.fromhex(got["tx"]) != tx
+                    or got["height"] != r["height"]
+                    or bytes.fromhex(got["proof"]["root_hash"]) != blk.header.data_hash
+                    or not proof.verify(blk.header.data_hash, tmhash(tx))):
+                raise AssertionError(f"node, (a): tx {tx!r} not read back: {q}, {got}")
+        top = node.block_store.height()
+        wait_for("a NewBlock event of every height", lambda: ws.heights()[-1:] >= [top],
+                 NODE_TIMEOUT_S)
+        # block h0 may have committed after the subscription: its event is not counted
+        heights = [h for h in ws.heights() if h0 < h <= top]
+        if heights != list(range(h0 + 1, top + 1)):
+            raise AssertionError(f"node, (a): NewBlock events {heights}, want {h0 + 1}..{top}")
+        ws.close()
+        hashes = [node.block_store.load_block(h).hash() for h in range(1, top + 1)]
+    finally:
+        node.stop()
+    stored = node.block_store.height()  # a block may commit between the checks and stop()
+    out.update(first_run_s=time.perf_counter() - t_start, heights=stored,
+               tx_heights=sorted({int(r["height"]) for r, _ in res}), ws_events=len(heights))
+    out["blocks_per_s"] = stored / out["first_run_s"]
+
+    # the restart: the handshake replays the stored blocks into a fresh app
+    t0 = time.perf_counter()
+    node = Node(cfg, app=KVStoreApp())
+    replayed = node.handshaker.blocks_replayed
+    node.start()
+    try:
+        wait_for(f"height {stored + NODE_RESTART_HEIGHTS} after the restart",
+                 lambda: node.consensus.sm_state.last_block_height
+                 >= stored + NODE_RESTART_HEIGHTS, NODE_TIMEOUT_S)
+        addr = node.rpc_addr
+        for tx in txs:
+            key, value = tx.split(b"=")
+            if bytes.fromhex(rpc(addr, "abci_query", data=key.hex())["response"]["value"]) \
+                    != value:
+                raise AssertionError(f"node, (a): {key!r} lost across the restart")
+        if [node.block_store.load_block(h).hash() for h in range(1, top + 1)] != hashes:
+            raise AssertionError("node, (a): the stored blocks changed across the restart")
+        after = node.consensus.sm_state.last_block_height
+    finally:
+        node.stop()
+    if replayed != stored:
+        raise AssertionError(f"node, (a): the handshake replayed {replayed} blocks, not {stored}")
+    out.update(restart_s=time.perf_counter() - t0, replayed=replayed, height_after=after)
+    log(f"node, (a) one node: {NODE_TXS} txs by broadcast_tx_commit in {out['txs_s']:.2f} s "
+        f"(p50 {out['commit_ms_p50']:.1f} ms, p99 {out['commit_ms_p99']:.1f} ms, in blocks "
+        f"{out['tx_heights']}), each read back by abci_query and tx with its proof; "
+        f"{len(heights)} NewBlock events, one a height; {stored} heights in "
+        f"{out['first_run_s']:.2f} s ({out['blocks_per_s']:.3f} blocks/s); the restart "
+        f"replayed {replayed} blocks and reached height {after} in {out['restart_s']:.2f} s "
+        f"[{card}]")
+    return out
+
+
+def node_procs_leg(dev, card, root: Path, log_dir: Path) -> dict:
+    """Phase 12 (b): NODE_PROCS homes from `cli testnet`, each node its own
+    process (`python3 -m cometbft_tpu_torch.cli start`): the chain runs to
+    NODE_PROC_HEIGHT with every node's /block hash and app hash equal at
+    every height and the /status app hashes equal; NODE_PROC_TXS txs by
+    broadcast_tx_sync at the last node, each found by `tx` on node 0; every
+    process exits 0 on SIGTERM."""
+    from cometbft_tpu_torch import cli
+
+    base = free_port_base(2 * NODE_PROCS)
+    net = root / "testnet"
+    if cli.main(["testnet", "--v", str(NODE_PROCS), "--output", str(net), "--chain-id",
+                 NODE_CHAIN + "-procs", "--starting-port", str(base)]) != 0:
+        raise AssertionError("node, (b): cli testnet failed")
+    homes = [net / f"node{i}" for i in range(NODE_PROCS)]
+    addrs = [("127.0.0.1", base + 2 * i + 1) for i in range(NODE_PROCS)]
+    if torch.device(dev).type != "cuda":  # the CPU rehearsal
+        for i, home in enumerate(homes):
+            node_config(home, dev, f"tcp://127.0.0.1:{base + 2 * i}",
+                        f"tcp://127.0.0.1:{base + 2 * i + 1}",
+                        ",".join(f"127.0.0.1:{base + 2 * j}" for j in range(NODE_PROCS)
+                                 if j != i))
+    logs = [log_dir / f"node_proc{i}.log" for i in range(NODE_PROCS)]
+    t0 = time.perf_counter()
+    procs = [start_process(h, lg) for h, lg in zip(homes, logs)]
+    out = {}
+    try:
+        def heights():
+            return [int(rpc(a, "status", timeout=5)["sync_info"]["latest_block_height"])
+                    for a in addrs]
+
+        wait_for("height 1 on every node", lambda: min(heights()) >= 1, NODE_TIMEOUT_S,
+                 procs=procs)
+        out["first_block_s"] = time.perf_counter() - t0
+        txs = [f"node-b-{i:03d}=value-{i}".encode() for i in range(NODE_PROC_TXS)]
+        hashes = []
+        for tx in txs:
+            r = rpc(addrs[-1], "broadcast_tx_sync", tx=tx.hex())
+            if r["code"]:
+                raise AssertionError(f"node, (b): broadcast_tx_sync refused {tx!r}: {r}")
+            hashes.append(r["hash"])
+        missing = set(hashes)
+
+        def found():
+            for h in list(missing):
+                try:
+                    rpc(addrs[0], "tx", timeout=5, hash=h)
+                    missing.discard(h)
+                except RuntimeError:
+                    pass
+            return not missing and min(heights()) >= NODE_PROC_HEIGHT
+
+        wait_for(f"height {NODE_PROC_HEIGHT} and every tx on node 0", found, NODE_TIMEOUT_S,
+                 poll_s=0.5, procs=procs)
+        top = min(heights())
+        blocks = [[rpc(a, "block", height=h) for a in addrs] for h in range(1, top + 1)]
+        for h, per_node in enumerate(blocks, 1):
+            ids = {b["block_id"]["hash"] for b in per_node}
+            apps = {b["block"]["header"]["app_hash"] for b in per_node}
+            if len(ids) != 1 or len(apps) != 1:
+                raise AssertionError(f"node, (b): the nodes differ at height {h}: {ids}, {apps}")
+
+        def same_status():
+            st = [rpc(a, "status")["sync_info"] for a in addrs]
+            if len({s["latest_block_height"] for s in st}) != 1:
+                return None
+            return {s["latest_app_hash"] for s in st}
+
+        apps = wait_for("/status at one height on every node", same_status, NODE_TIMEOUT_S,
+                        poll_s=0.05, procs=procs)
+        if len(apps) != 1:
+            raise AssertionError(f"node, (b): /status app hashes differ: {apps}")
+        # block 1's time is the genesis time: the interval runs from block 2
+        times = [b[0]["block"]["header"]["time"] for b in blocks[1:]]
+        t_ns = [int(t["seconds"]) * 10**9 + int(t["nanos"]) for t in times]
+        out.update(height=top, txs=len(txs), run_s=time.perf_counter() - t0,
+                   block_interval_s=(t_ns[-1] - t_ns[0]) / 1e9 / (top - 2))
+        out["blocks_per_s"] = 1 / out["block_interval_s"]
+    finally:
+        out["exit_codes"] = stop_processes(procs, logs)
+    log(f"node, (b) {NODE_PROCS} node processes: first block {out['first_block_s']:.2f} s after "
+        f"the launch; heights 1-{out['height']} equal on every node (block hash, app hash, "
+        f"/status), {out['txs']} txs sent at node {NODE_PROCS - 1} all found on node 0; block "
+        f"interval {out['block_interval_s']:.3f} s ({out['blocks_per_s']:.3f} blocks/s, "
+        f"header times), exit codes {out['exit_codes']} on SIGTERM; the 4-signature last "
+        f"commits take the native route by design (under NATIVE_MAX) [{card}]")
+    return out
+
+
+def genesis_doc_of(genesis):
+    """The GenesisDoc whose genesis state is `genesis` (a make_chain
+    chain's), checked byte for byte."""
+    from cometbft_tpu_torch.state.execution import make_genesis_state
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    gd = GenesisDoc(
+        chain_id=genesis.chain_id, genesis_time=genesis.last_block_time,
+        initial_height=genesis.initial_height,
+        validators=[GenesisValidator(v.pub_key.bytes(), v.voting_power)
+                    for v in genesis.validators.validators])
+    back = make_genesis_state(gd.chain_id, gd.validator_set(), app_hash=gd.app_hash,
+                              initial_height=gd.initial_height, genesis_time=gd.genesis_time,
+                              consensus_params=gd.consensus_params)
+    if back.encode() != genesis.encode():
+        raise AssertionError("node: the genesis document does not give the chain's genesis")
+    return gd
+
+
+def node_catchup_leg(dev, card, counts: dict, root: Path, log_dir: Path, chain) -> dict:
+    """Phase 12 (c): a source node process (`cli start`) on a home holding
+    the first NODE_SOURCE_TOP heights of `chain` (sqlite block and state
+    stores, the genesis of its validators), its handshake replaying them
+    into its app; a fresh Node in this process, `persistent_peers` the
+    source, catches up through Node.start()'s block-sync hand-off with the
+    calibrated dispatch. Its state at the tip must be the host's, its
+    /commit of the tip all the signatures, and `decompress` with the ladder
+    or `accum_weight` must have launched. Both nodes run with the p2p rate
+    limits off, as phase 10 (b2): a block of 10,000 signatures is ~1.1 MB,
+    and at the default 512,000 B/s, with the pool's 5 s re-requests, four
+    of them would take most of Node.start()'s 30 s."""
+    from cometbft_tpu_torch import cli
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+    from cometbft_tpu_torch.node import Node
+    from cometbft_tpu_torch.storage import BlockStore, SqliteKV, StateStore
+
+    store, genesis = chain
+    top = NODE_SOURCE_TOP
+    n_vals = len(genesis.validators.validators)
+    gd = genesis_doc_of(genesis)
+    src, dst = root / "source", root / "catchup"
+    for home in (src, dst):
+        if cli.main(["--home", str(home), "init", "--chain-id", genesis.chain_id]) != 0:
+            raise AssertionError("node, (c): cli init failed")
+        gd.save(str(home / "config" / "genesis.json"))
+    t0 = time.perf_counter()
+    bkv, skv = SqliteKV(str(src / "data" / "blockstore.db")), SqliteKV(str(src / "data" /
+                                                                           "state.db"))
+    bs = BlockStore(bkv)
+    for h in range(1, top + 1):
+        bs.save_block(store.load_block(h), store.load_seen_commit(h))
+    source_state = host_state(store, genesis, top, state_store=StateStore(skv))
+    bkv.close()
+    skv.close()
+    want = host_state(store, genesis, top - 1).encode()
+    out = {"validators": n_vals, "home_s": time.perf_counter() - t0}
+    port = free_port_base(2)
+    node_config(src, dev, f"tcp://127.0.0.1:{port}", f"tcp://127.0.0.1:{port + 1}", rate=0)
+    cfg = node_config(dst, dev, "tcp://127.0.0.1:0", "tcp://127.0.0.1:0", f"127.0.0.1:{port}",
+                      rate=0)
+    logs = [log_dir / "node_source.log"]
+    t0 = time.perf_counter()
+    procs = [start_process(src, logs[0])]
+    try:
+        st = wait_for("the source's RPC", lambda: rpc(("127.0.0.1", port + 1), "status",
+                                                      timeout=5)["sync_info"],
+                      NODE_TIMEOUT_S, poll_s=0.2, procs=procs)
+        out["source_boot_s"] = time.perf_counter() - t0
+        if (int(st["latest_block_height"]) != top
+                or bytes.fromhex(st["latest_app_hash"]) != source_state.app_hash):
+            raise AssertionError(f"node, (c): the source's handshake gave {st}")
+        node = Node(cfg, app=KVStoreApp())
+        try:
+            def catch_up():
+                t = time.perf_counter()
+                node.start()
+                return time.perf_counter() - t, node.consensus.sm_state
+
+            (start_s, state), routes = counted_leg(counts, "node", "catchup", catch_up)
+            c = counts["catchup"]
+            pool = node.blocksync_reactor.pool
+            synced = ("block sync never ran: no peer when start() looked" if pool is None else
+                      f"block sync stopped at height {pool.height} of the peers' "
+                      f"{pool.max_peer_height()}, {len(node.blocksync_reactor.refused)} refused")
+            if not c["decompress"] or not (c["ladder_sub_mul8"] or c["accum_weight"]):
+                raise AssertionError(f"node, (c): no device check ran ({synced}): launches {c}")
+            if state.last_block_height != top - 1 or state.encode() != want:
+                raise AssertionError(f"node, (c): caught up to height "
+                                     f"{state.last_block_height} (want {top - 1}), state equal "
+                                     f"{state.encode() == want} ({synced})")
+            # block sync stores the tip's commit as it came (block top's last
+            # commit): the seen commit, since block top itself is not stored
+            commit = rpc(node.rpc_addr, "commit", height=top - 1)["signed_header"]["commit"]
+            sigs = [s for s in commit["signatures"] if s["signature"]]
+            if (len(sigs) != n_vals or commit["block_id"]["hash"]
+                    != store.load_block(top - 1).hash().hex().upper()):
+                raise AssertionError(f"node, (c): /commit of {top - 1} has {len(sigs)} "
+                                     f"signatures for block {commit['block_id']['hash']}")
+        finally:
+            node.stop()
+    finally:
+        out["exit_codes"] = stop_processes(procs, logs)
+    out.update(start_s=start_s, blocks=top - 1, routes=routes, launches=counts["catchup"],
+               blocks_per_s=(top - 1) / start_s)
+    log(f"node, (c) {n_vals} validators: a source process on {top} stored heights (booted in "
+        f"{out['source_boot_s']:.2f} s, its handshake to the state's app hash); a fresh Node "
+        f"caught up {top - 1} blocks in Node.start() {start_s:.2f} s ({out['blocks_per_s']:.3f} "
+        f"blocks/s) to the host's state, /commit {top - 1} with {n_vals} signatures; routes "
+        f"{routes}, launches {({k: v for k, v in counts['catchup'].items() if v})} [{card}]")
+    return out
+
+
+def node_phase(dev, card, kern: dict, chain) -> dict:
+    """Phase 12: the node through its entry points (`cli`, `Node`, the RPC):
+    (a) one node, (b) node processes, (c) a 10,000-validator catch-up; each
+    leg with the launch counts set to 0 just before it and read right after.
+    The in-process nodes' log records are counted, not printed; the node
+    processes' output goes to OUT_DIR/node/."""
+    import tempfile
+
+    from cometbft_tpu_torch.utils import log as L
+
+    out, counts, records = {"card": card}, {}, []
+    log_dir = OUT_DIR / "node"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    sink = L._config.sink
+    L.set_sink(lambda level, msg, fields: records.append(
+        f"{time.time():.3f} {level} {msg} {fields}"))
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            out["single"], _ = counted_leg(counts, "node", "single",
+                                           lambda: node_single_leg(dev, card, tmp / "single"))
+            out["procs"], _ = counted_leg(counts, "node", "procs",
+                                          lambda: node_procs_leg(dev, card, tmp, log_dir))
+            out["catchup"] = node_catchup_leg(dev, card, counts, tmp, log_dir, chain)
+    finally:
+        L.set_sink(sink)
+        (log_dir / "in_process.log").write_text("\n".join(records) + "\n")
+    out["log_records"] = len(records)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"node: phase 12 took {out['seconds']:.1f} s, {len(records)} log records [{card}]")
+    out["counts"] = counts
+    for name in SOURCES:
+        kern[name]["launches_by_route"]["node"] = sum(c[name] for c in counts.values())
+        kern[name]["launches"] += kern[name]["launches_by_route"]["node"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5426,8 +6000,12 @@ def main(argv=None) -> int:
     log(f"phase 10 took {blocksync['phase_s']:.1f} s (the mesh {mesh['seconds']:.1f} s) [{card}]")
 
     # ---- phase 11: the network reactors and state sync
-    network = network_phase(dev, card, args.seed, kern, ((chain[0], chain[2]),
-                                                         blocksync.pop("chain")), stream, mul_rate)
+    sync_chain = blocksync.pop("chain")
+    network = network_phase(dev, card, args.seed, kern, ((chain[0], chain[2]), sync_chain),
+                            stream, mul_rate)
+
+    # ---- phase 12: the node
+    node = node_phase(dev, card, kern, sync_chain)
 
     results.update(kernels=kern, stage=stage, sigs_per_s=sigs_per_s, pipeline_warm_s=warm_s,
                    pipeline_cold_s=cold_s, testgen_s=gen_s, counts=counts,
@@ -5435,10 +6013,10 @@ def main(argv=None) -> int:
                    rlc_pipeline_warm_s=rlc_warm_s, rlc_pipeline_cold_s=rlc_cold_s,
                    rlc_counts=rlc_counts, sha_routes=sha_routes, host_engine=host,
                    consumers=consumers, replay=replay, ingest=ingest, consensus=consensus,
-                   mesh=mesh, blocksync=blocksync, network=network)
+                   mesh=mesh, blocksync=blocksync, network=network, node=node)
     (OUT_DIR / "results.json").write_text(json.dumps(results, indent=1, default=str))
 
-    # ---- phases 12 and 13: the kernel line, the card, the contract line
+    # ---- phases 13 and 14: the kernel line, the card, the contract line
     keys = ("name", "route", "source", "replaces", "launches", "mismatches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[n][k] for k in keys} for n in SOURCES]}))

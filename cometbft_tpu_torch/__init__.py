@@ -13,3 +13,5 @@ never `cometbft_tpu`. Entry points take `device=` and default to "cuda";
 a CUDA tensor always goes through the kernels, a CPU tensor through their
 plain PyTorch versions.
 """
+
+__version__ = "0.3.0"  # the reference's version: the node and CLI report it

@@ -476,10 +476,16 @@ class ConsensusReactor(Reactor):
     CATCHUP_CACHE_SIZE = 8  # committed-block PartSets kept for laggards
     MAX_VALIDATORS = MAX_VALIDATORS  # per-message vote-index/bitmap cap
 
-    def __init__(self, cs: ConsensusState, block_store=None):
+    def __init__(self, cs: ConsensusState, block_store=None, wait_sync: bool = False):
         self.cs = cs
         self.block_store = block_store if block_store is not None else cs.block_store
         self.switch = None
+        # CometBFT's waitSync (consensus/reactor.go AddPeer, Receive): while
+        # the node block-syncs it announces no round step, so peers gossip
+        # it no catch-up, and it drops proposals, parts and votes;
+        # switch_to_consensus() ends it. The reference has no such wait
+        # (ROADMAP.md queue C).
+        self.wait_sync = wait_sync
         self._peers: dict[str, PeerState] = {}
         self._threads: dict[str, threading.Thread] = {}
         self._lock = threading.Lock()
@@ -541,7 +547,8 @@ class ConsensusReactor(Reactor):
                 name=f"gossip-{peer.id[:8]}",
             )
             self._threads[peer.id] = t
-        peer.send(STATE_CHANNEL, encode_consensus_msg(self._our_step_msg()))
+        if not self.wait_sync:
+            peer.send(STATE_CHANNEL, encode_consensus_msg(self._our_step_msg()))
         t.start()
 
     def remove_peer(self, peer, reason) -> None:
@@ -608,7 +615,19 @@ class ConsensusReactor(Reactor):
         # other VoteMessage: served from cs.votes by the vote gossip
 
     # -- inbound --------------------------------------------------------
+    def switch_to_consensus(self) -> None:
+        """End the block-sync wait: announce our round step to every peer
+        (CometBFT Reactor.SwitchToConsensus)."""
+        self.wait_sync = False
+        frame = encode_consensus_msg(self._our_step_msg())
+        with self._lock:
+            peers = [ps.peer for ps in self._peers.values()]
+        for peer in peers:
+            peer.send(STATE_CHANNEL, frame)
+
     def receive(self, chan_id: int, peer, raw: bytes) -> None:
+        if self.wait_sync and chan_id in (DATA_CHANNEL, VOTE_CHANNEL):
+            return
         try:
             msg = decode_consensus_msg(raw)
         except UnsupportedCommitFormat:
@@ -820,7 +839,7 @@ class ConsensusReactor(Reactor):
         stall observed live on two-validator nets. A 2 s heartbeat of
         ~30 bytes makes peer state self-healing."""
         now = time.monotonic()
-        if now - ps.last_step_send < self.STEP_RESEND_S:
+        if self.wait_sync or now - ps.last_step_send < self.STEP_RESEND_S:
             return
         ps.last_step_send = now
         ps.peer.send(

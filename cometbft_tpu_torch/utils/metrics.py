@@ -39,6 +39,17 @@ import time
 NAMESPACE = "cometbft"
 
 
+def set_namespace(ns: str) -> None:
+    """Set the metric-name prefix (config [instrumentation] namespace).
+
+    Affects metrics registered after the call; node startup invokes it
+    before any subsystem bundle is created.
+    """
+    global NAMESPACE
+    if ns:
+        NAMESPACE = ns
+
+
 class _Metric:
     def __init__(self, name: str, help_: str, labels: tuple[str, ...]):
         self.name = name

@@ -22,11 +22,12 @@ import time
 
 enabled = False
 _fh = None
+_path = None
 _lock = threading.Lock()
 
 def configure(path: str) -> None:
     """Open (append) the JSONL sink at `path` and enable tracing."""
-    global enabled, _fh
+    global enabled, _fh, _path
     with _lock:
         if _fh is not None:
             _fh.close()
@@ -34,16 +35,39 @@ def configure(path: str) -> None:
         if d:
             os.makedirs(d, exist_ok=True)
         _fh = open(path, "a", encoding="utf-8")
+        _path = path
         enabled = True
 
 
 def disable() -> None:
-    global enabled, _fh
+    global enabled, _fh, _path
     with _lock:
         enabled = False
         if _fh is not None:
             _fh.close()
         _fh = None
+        _path = None
+
+
+def path() -> str | None:
+    return _path
+
+
+def tail(n: int = 100) -> list[dict]:
+    """Last `n` parsed records of the sink (the dump_trace RPC). Every
+    record is flushed as it is written, so the file is whole; a line that
+    does not parse is skipped."""
+    p = _path
+    if p is None or not os.path.exists(p):
+        return []
+    out = []
+    with open(p, encoding="utf-8", errors="replace") as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                continue
+    return out[-n:]
 
 
 def emit(name: str, kind: str = "event", **fields) -> None:

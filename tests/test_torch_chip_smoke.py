@@ -785,3 +785,65 @@ def test_statesync_phase_rehearsal(ss_chains, monkeypatch, quiet_nodes):
     assert out["c1"]["rejected"] == out["c2"]["rejected"] == []
     assert out["c2"]["light_heights"] == [1, 4, 5, 6] and out["c1"]["light_ms_a_block"] > 0
     assert all(out[k]["launches"]["ladder_sub_mul8"] for k in ("c1", "c2", "c3"))
+
+
+# ---- phase 12's legs (the node)
+
+@pytest.fixture
+def node_out(monkeypatch, tmp_path):
+    """The node processes' logs under tmp_path; the kernels' card sync a
+    no-op."""
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path / "out")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    (tmp_path / "out" / "node").mkdir(parents=True)
+    return tmp_path
+
+
+def test_node_single_leg_rehearsal(monkeypatch, node_out, quiet_nodes):
+    """Phase 12 (a) on the CPU with 16 txs: `cli init`'s defaults, every tx
+    committed over HTTP and read back with its proof, one NewBlock event a
+    height, and the restart replaying every stored block into a fresh app
+    before committing more."""
+    monkeypatch.setattr(chip_smoke, "NODE_TXS", 16)
+    out = chip_smoke.node_single_leg(torch.device("cpu"), "cpu", node_out / "single")
+    assert out["replayed"] == out["heights"] >= 2 and out["ws_events"] >= 1
+    assert out["height_after"] >= out["heights"] + chip_smoke.NODE_RESTART_HEIGHTS
+    assert 0 < out["commit_ms_p50"] <= out["commit_ms_p99"]
+
+
+def test_node_procs_leg_rehearsal(monkeypatch, node_out):
+    """Phase 12 (b) on the CPU: 4 processes from `cli testnet` (the backend
+    set to "cpu") to height 3 with 16 txs sent at node 3, equal at every
+    height, each exiting 0 on SIGTERM."""
+    monkeypatch.setattr(chip_smoke, "NODE_PROC_HEIGHT", 3)
+    monkeypatch.setattr(chip_smoke, "NODE_PROC_TXS", 16)
+    out = chip_smoke.node_procs_leg(torch.device("cpu"), "cpu", node_out,
+                                    node_out / "out" / "node")
+    assert out["height"] >= 3 and out["exit_codes"] == [0] * chip_smoke.NODE_PROCS
+    assert out["block_interval_s"] > 0
+
+
+def test_node_catchup_leg_rehearsal(monkeypatch, node_out, quiet_nodes):
+    """Phase 12 (c) on the CPU at 24 validators: every check on the plain
+    ladder (NATIVE_MAX at 0, counted as launches); a source process on the
+    first 3 heights of a 4-block chain, a fresh Node catching up 2 blocks
+    through Node.start() to the host's state. The plain ladder takes
+    seconds a check on a loaded CPU, so block sync gets 300 s here where
+    the node gives it 30."""
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.utils import factories as fx
+
+    store, _, genesis, _ = fx.make_chain(4, n_validators=24, chain_id=chip_smoke.SYNC_CHAIN,
+                                         txs_per_block=1, device="cpu")
+    _count_plain_kernels(monkeypatch)
+    monkeypatch.setattr(E, "NATIVE_MAX", 0)
+    monkeypatch.setattr(chip_smoke, "NODE_SOURCE_TOP", 3)
+    sync = BlockSyncReactor.sync
+    monkeypatch.setattr(BlockSyncReactor, "sync",
+                        lambda self, timeout_s=60.0, **k: sync(self, timeout_s=300.0, **k))
+    counts = {}
+    out = chip_smoke.node_catchup_leg(torch.device("cpu"), "cpu", counts, node_out,
+                                      node_out / "out" / "node", (store, genesis))
+    assert out["blocks"] == 2 and out["exit_codes"] == [0] and out["validators"] == 24
+    assert counts["catchup"]["decompress"] and counts["catchup"]["ladder_sub_mul8"]
+    assert out["routes"]["ladder"] >= 2

@@ -166,6 +166,35 @@ def test_certificate_frame_is_dropped_and_the_peer_kept_unlike_the_reference():
     assert [type(m).__name__ for m in rcs.got] == ["AggregateCommitMessage"]
 
 
+def test_block_sync_wait_holds_gossip_until_the_switch_unlike_the_reference():
+    """While its node block-syncs (`wait_sync`), the port's reactor
+    announces no round step and drops proposals, parts and votes, as
+    CometBFT's does; switch_to_consensus() announces the step to every
+    peer and takes them again. The reference's reactor has no wait."""
+    vote, prop, part = (_port_msgs()[i] for i in (0, 1, 7))
+    frames = [(R.VOTE_CHANNEL, R.encode_consensus_msg(vote)),
+              (R.DATA_CHANNEL, R.encode_consensus_msg(prop)),
+              (R.DATA_CHANNEL, R.encode_consensus_msg(part))]
+    cs = FakeCS()
+    r = R.ConsensusReactor(cs, wait_sync=True)
+    peer = FakePeer()
+    r.add_peer(peer)
+    r.stop()
+    assert peer.sent == []
+    for chan, raw in frames:
+        r.receive(chan, peer, raw)
+    assert cs.got == []
+    r.switch_to_consensus()
+    assert [chan for chan, _ in peer.sent] == [R.STATE_CHANNEL]
+    assert type(R.decode_consensus_msg(peer.sent[0][1])).__name__ == "NewRoundStepMessage"
+    for chan, raw in frames:
+        r.receive(chan, peer, raw)
+    # (one part of three: the reactor holds it until the block is whole)
+    assert [type(m).__name__ for m in cs.got] == ["VoteMessage", "ProposalMessage"]
+    rr, rcs, rpeer = _reactor(RR)
+    assert rpeer.sent and {chan for chan, _ in rpeer.sent} == {RR.STATE_CHANNEL}
+
+
 def _parts_and_proposal(t, part_set, st, data: bytes):
     ps = part_set.PartSet.from_data(data)
     prop = t.Proposal(height=7, round=1, pol_round=-1, block_id=t.BlockID(

@@ -86,7 +86,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                        "cometbft_tpu_torch.statesync.syncer",
                        "cometbft_tpu_torch.statesync.reactor",
                        "cometbft_tpu_torch.state.pruner",
-                       "cometbft_tpu_torch.state.rollback"]) - set(names)
+                       "cometbft_tpu_torch.state.rollback", "cometbft_tpu_torch.utils.pubsub",
+                       "cometbft_tpu_torch.types.event_bus", "cometbft_tpu_torch.types.genesis",
+                       "cometbft_tpu_torch.storage.indexer",
+                       "cometbft_tpu_torch.state.handshake", "cometbft_tpu_torch.abci.socket",
+                       "cometbft_tpu_torch.config", "cometbft_tpu_torch.rpc",
+                       "cometbft_tpu_torch.rpc.routes", "cometbft_tpu_torch.rpc.server",
+                       "cometbft_tpu_torch.rpc.client", "cometbft_tpu_torch.rpc.codec",
+                       "cometbft_tpu_torch.light.provider_http", "cometbft_tpu_torch.node",
+                       "cometbft_tpu_torch.node.node", "cometbft_tpu_torch.cli"]) - set(names)
+        bad += sorted(n for n in sys.modules if n.split(".")[0] in ("grpc",))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 50 else 0)
     """)
